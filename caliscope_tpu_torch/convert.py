@@ -1,0 +1,64 @@
+"""Carry state across from the JAX package.
+
+This system has no weights; its state is the rig and the observations. The
+functions here take that state as plain numpy arrays — exported from
+caliscope_tpu objects by the caller — and build the port's CameraArray,
+ImagePoints and WorldPoints. Nothing here imports the JAX package.
+
+Exporting from caliscope_tpu (in a program that has both packages):
+
+    cams = {cid: dict(matrix=c.matrix, distortions=c.distortions,
+                      rotation=c.rotation, translation=c.translation,
+                      size=c.size, fisheye=c.fisheye)
+            for cid, c in jax_cameras.cameras.items()}
+    ip = {name: getattr(jax_points, name) for name in IMAGE_POINT_FIELDS}
+    wp = {name: getattr(jax_world, name) for name in WORLD_POINT_FIELDS}
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+
+from caliscope_tpu_torch.cameras import CameraArray, CameraData
+from caliscope_tpu_torch.observations import ImagePoints, WorldPoints
+
+CAMERA_FIELDS = ("matrix", "distortions", "rotation", "translation", "size", "fisheye")
+IMAGE_POINT_FIELDS = ("sync_index", "cam_id", "object_id", "keypoint_id", "img_xy", "obj_loc", "frame_time")
+WORLD_POINT_FIELDS = ("sync_index", "object_id", "keypoint_id", "xyz", "frame_time")
+
+
+def _copy(v):
+    return None if v is None else np.array(v, copy=True)
+
+
+def camera_array(cameras: Mapping[int, Mapping[str, Any]]) -> CameraArray:
+    """{cam_id: {field: value}} with the CAMERA_FIELDS -> CameraArray.
+    rotation is (3,3) (or a Rodrigues 3-vector); unset fields may be None."""
+    out = {}
+    for cid, c in cameras.items():
+        unknown = set(c) - set(CAMERA_FIELDS)
+        if unknown:
+            raise ValueError(f"camera {cid}: unknown fields {sorted(unknown)}")
+        size = c.get("size")
+        out[int(cid)] = CameraData(
+            cam_id=int(cid),
+            size=None if size is None else (int(size[0]), int(size[1])),
+            matrix=_copy(c.get("matrix")),
+            distortions=_copy(c.get("distortions")),
+            rotation=_copy(c.get("rotation")),
+            translation=_copy(c.get("translation")),
+            fisheye=bool(c.get("fisheye", False)),
+        )
+    return CameraArray(out)
+
+
+def image_points(columns: Mapping[str, Any]) -> ImagePoints:
+    """Columns named as IMAGE_POINT_FIELDS (obj_loc and frame_time optional)."""
+    return ImagePoints(**{k: _copy(columns.get(k)) for k in IMAGE_POINT_FIELDS})
+
+
+def world_points(columns: Mapping[str, Any]) -> WorldPoints:
+    """Columns named as WORLD_POINT_FIELDS (frame_time optional)."""
+    return WorldPoints(**{k: _copy(columns.get(k)) for k in WORLD_POINT_FIELDS})

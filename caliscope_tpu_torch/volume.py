@@ -1,0 +1,400 @@
+"""CaptureVolume: the frozen calibration aggregate and its bundle-adjustment
+operations.
+
+Port of the optimize/filter half of caliscope_tpu/volume.py. Every
+transform returns a new frozen instance. `optimize()` buckets the
+observation and point counts and picks the dense point-minor layout exactly
+as the JAX package does, then runs the port's LM solve
+(solvers/bundle.py) on the volume's device; reports and filters reuse the
+same reprojection code.
+
+A volume runs on `device` (CUDA unless the caller passes another, e.g.
+"cpu") in `dtype` (float32 on CUDA, float64 on the CPU unless given).
+
+Not ported yet: `bootstrap` (the pose network), anchoring (align_to_object,
+rotate, translate, scaled, oriented, grounded, centered), save/load and
+rigidity / volumetric-scale QA; a non-None `constraints` raises
+NotImplementedError (ROADMAP.md queue 1).
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass, field
+from functools import cached_property
+from typing import Literal, Optional
+
+import numpy as np
+import torch
+
+from caliscope_tpu_torch.cameras import CameraArray
+from caliscope_tpu_torch.device import resolve_device, resolve_dtype
+from caliscope_tpu_torch.exceptions import CalibrationError
+from caliscope_tpu_torch.observations import STATIC_SYNC_INDEX, ImagePoints, WorldPoints
+from caliscope_tpu_torch.reports import OptimizationStatus, RawErrors, ReprojectionReport
+from caliscope_tpu_torch.scale import compute_depth_ratios
+from caliscope_tpu_torch.solvers.bundle import not_ported
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass(frozen=True)
+class CaptureVolume:
+    camera_array: CameraArray
+    image_points: ImagePoints
+    world_points: WorldPoints
+    constraints: None = None
+    device: Optional[torch.device] = field(default=None, compare=False)
+    dtype: Optional[torch.dtype] = field(default=None, compare=False)
+    img_to_obj_map: np.ndarray = field(init=False, compare=False)
+    _optimization_status: Optional[OptimizationStatus] = field(default=None, compare=False)
+
+    # ---- construction / validation ----------------------------------------
+    def __post_init__(self):
+        if self.constraints is not None:
+            raise not_ported("CaptureVolume with constraints", "item 13, constraints and constrained BA")
+        device = resolve_device(self.device)
+        object.__setattr__(self, "device", device)
+        object.__setattr__(self, "dtype", resolve_dtype(device, self.dtype))
+        object.__setattr__(self, "img_to_obj_map", self._compute_img_to_obj_map())
+        self._validate_geometry()
+
+    @property
+    def optimization_status(self) -> Optional[OptimizationStatus]:
+        return self._optimization_status
+
+    def _derived(self, **changes) -> "CaptureVolume":
+        """A new volume on the same device and dtype."""
+        fields = dict(
+            camera_array=self.camera_array,
+            image_points=self.image_points,
+            world_points=self.world_points,
+            device=self.device,
+            dtype=self.dtype,
+        )
+        fields.update(changes)
+        return CaptureVolume(**fields)
+
+    def _compute_img_to_obj_map(self) -> np.ndarray:
+        """Join each image row onto its world-point row by (sync, object,
+        keypoint) key; -1 where the join misses (packed int64 keys matched
+        with a sorted searchsorted lookup)."""
+        wp, ip = self.world_points, self.image_points
+
+        def pack(sync, obj, kp):
+            # 2^21 headroom per field: sync up to ~2M, object/keypoint ids too
+            return ((sync + 2) << 42) | (obj.astype(np.int64) << 21) | kp.astype(np.int64)
+
+        world_keys = pack(wp.sync_index.astype(np.int64), wp.object_id, wp.keypoint_id)
+        obs_keys = pack(ip.sync_index.astype(np.int64), ip.object_id, ip.keypoint_id)
+        if len(world_keys) == 0:
+            return np.full(len(obs_keys), -1, dtype=np.int32)
+        order = np.argsort(world_keys, kind="stable")
+        pos = np.searchsorted(world_keys[order], obs_keys)
+        pos_clipped = np.minimum(pos, len(world_keys) - 1)
+        hit = (pos < len(world_keys)) & (world_keys[order][pos_clipped] == obs_keys)
+        joined = np.where(hit, order[pos_clipped], -1).astype(np.int32)
+        n_miss = int((joined < 0).sum())
+        if n_miss:
+            logger.info(f"{n_miss}/{len(joined)} image observations lack a triangulated world point")
+        return joined
+
+    def _validate_geometry(self):
+        """Reject aggregates that cannot possibly support a solve; warn when
+        the observation count is thin relative to the unknowns."""
+        if len(self.image_points) == 0:
+            raise ValueError("CaptureVolume needs image observations; got an empty set")
+        if len(self.world_points) == 0:
+            raise ValueError("CaptureVolume needs world points; got an empty set")
+        if not self.camera_array.posed_cameras:
+            raise ValueError("CaptureVolume needs at least one posed camera")
+        n_joined = int((self.img_to_obj_map >= 0).sum())
+        if n_joined == 0:
+            raise ValueError(
+                "Not one image observation joins onto a world point — the 2D and 3D "
+                "tables describe disjoint captures"
+            )
+        floor = 2 * len(self.world_points)
+        if n_joined < floor:
+            logger.warning(
+                f"Thin geometry: only {n_joined} joined observations against "
+                f"{len(self.world_points)} world points (multi-view work wants >= {floor})"
+            )
+
+    # ---- core solver plumbing ----------------------------------------------
+    def _matched_arrays(self):
+        """(mask, cam_idx (M,), obj_idx (M,), uv (M,2), views) over matched
+        observations from posed cameras; views are float64 host tensors."""
+        views = self.camera_array.device_views(posed_only=True, device="cpu", dtype=torch.float64)
+        posed_idx = {int(c): i for i, c in enumerate(views.cam_ids)}
+        posed_mask = np.isin(self.image_points.cam_id, views.cam_ids)
+        mask = (self.img_to_obj_map >= 0) & posed_mask
+        cam_idx = np.array([posed_idx[int(c)] for c in self.image_points.cam_id[mask]], dtype=np.int64)
+        obj_idx = self.img_to_obj_map[mask].astype(np.int64)
+        uv = self.image_points.img_xy[mask]
+        return mask, cam_idx, obj_idx, uv, views
+
+    def pixel_f_scale(self, px: float = 1.0) -> float:
+        """Map a pixel threshold into 1/fx_init-normalized residual units."""
+        focals = [c.matrix[0, 0] for c in self.camera_array.posed_cameras.values() if c.matrix is not None]
+        return px / float(np.median(focals))
+
+    @cached_property
+    def reprojection_report(self) -> ReprojectionReport:
+        """Pixel-space error report over matched observations, computed on
+        the volume's device (cached — the volume is immutable)."""
+        from caliscope_tpu_torch.ops.bucket import bucket_size, pad_rows
+        from caliscope_tpu_torch.ops.reprojection import reprojection_errors
+        from caliscope_tpu_torch.solvers.bundle import initial_cam9
+
+        mask, cam_idx, obj_idx, uv, views = self._matched_arrays()
+        n_total = len(self.img_to_obj_map)
+        n_matched = int(mask.sum())
+        if n_matched == 0:
+            raise ValueError("Reprojection report needs matched observations, and this volume has none")
+
+        def dev(a, dt=self.dtype):
+            return torch.as_tensor(np.asarray(a), device=self.device, dtype=dt)
+
+        # rows bucketed as the JAX package buckets them (filler rows: index 0, uv 0)
+        Nb = bucket_size(n_matched)
+        err = reprojection_errors(
+            dev(initial_cam9(self.camera_array)),
+            dev(pad_rows(self.world_points.xyz, bucket_size(len(self.world_points)))),
+            dev(pad_rows(cam_idx, Nb), torch.int64),
+            dev(pad_rows(obj_idx, Nb), torch.int64),
+            dev(pad_rows(uv, Nb)),
+            dev(views.K),
+            dev(views.dist),
+            dev(views.fisheye, torch.bool),
+        )[:n_matched].cpu().numpy().astype(np.float64)
+        euclid = np.sqrt(np.sum(err**2, axis=1))
+        ip = self.image_points
+        raw = RawErrors(
+            sync_index=ip.sync_index[mask],
+            cam_id=ip.cam_id[mask],
+            object_id=ip.object_id[mask],
+            keypoint_id=ip.keypoint_id[mask],
+            error_xy=err,
+        )
+        by_camera = {}
+        for cid in self.camera_array.posed_cameras:
+            sel = raw.cam_id == cid
+            by_camera[cid] = float(np.sqrt(np.mean(euclid[sel] ** 2))) if sel.any() else 0.0
+        by_point = {}
+        pk = np.stack([raw.object_id, raw.keypoint_id], axis=1)
+        for o, k in np.unique(pk, axis=0):
+            sel = (raw.object_id == o) & (raw.keypoint_id == k)
+            by_point[(int(o), int(k))] = float(np.sqrt(np.mean(euclid[sel] ** 2)))
+        unmatched_by_camera = {}
+        for cid in self.camera_array.cameras:
+            total = int(np.sum(ip.cam_id == cid))
+            matched = int(np.sum((ip.cam_id == cid) & mask))
+            unmatched_by_camera[cid] = total - matched
+        return ReprojectionReport(
+            overall_rmse=float(np.sqrt(np.mean(euclid**2))),
+            by_camera=by_camera,
+            by_point=by_point,
+            n_unmatched_observations=n_total - n_matched,
+            unmatched_rate=(n_total - n_matched) / n_total if n_total else 0.0,
+            unmatched_by_camera=unmatched_by_camera,
+            raw_errors=raw,
+            n_observations_matched=n_matched,
+            n_observations_total=n_total,
+            n_cameras=len(self.camera_array.posed_cameras),
+            n_points=len(self.world_points),
+        )
+
+    # ---- bundle adjustment --------------------------------------------------
+    def optimize(
+        self,
+        ftol: float = 1e-8,
+        max_nfev: int | None = None,
+        strict: bool = True,
+        use_constraints: bool = True,
+        pixel_sigma: float = 1.0,
+        *,
+        refine_intrinsics: bool = False,
+        loss: str = "linear",
+        f_scale: float = 1.0,
+        solver: str = "auto",
+        fused_schur: bool | None = None,
+    ) -> "CaptureVolume":
+        """Bundle adjustment. Extrinsics-only by default; refine_intrinsics
+        adds the [s, k1, k2] block per camera.
+
+        fused_schur: passed to lm_solve — None (default) assembles the Schur
+        system with the CUDA kernel whenever the problem qualifies, False
+        never, True always (raising where the kernel cannot run)."""
+        from caliscope_tpu_torch.ops.bucket import bucket_size
+        from caliscope_tpu_torch.solvers.bundle import (
+            BAConfig,
+            bound_warnings,
+            initial_cam9,
+            lm_solve,
+            make_dense_problem,
+        )
+
+        _mask, cam_idx, obj_idx, uv, views = self._matched_arrays()
+
+        # Bucket observation and point counts as the JAX package does (one
+        # problem shape per quarter octave). Padding points start at the
+        # cloud centroid and are pinned by the solver's zero-diagonal prior,
+        # so their update is exactly zero.
+        N_real, P_real = len(uv), len(self.world_points)
+        Pb = bucket_size(P_real + 1, fine=True)
+        X0 = np.empty((Pb, 3))
+        X0[:P_real] = self.world_points.xyz
+        X0[P_real:] = self.world_points.xyz.mean(axis=0)
+
+        # Layout choice: the dense (P, C) grid needs unique (point, camera)
+        # pairs and pays off when the grid is at least a third full
+        n_cams = len(views.K)
+        pair_key = obj_idx.astype(np.int64) * n_cams + cam_idx
+        unique_pairs = len(np.unique(pair_key)) == len(pair_key)
+        if not (unique_pairs and Pb * n_cams <= 3 * max(N_real, 1)):
+            raise not_ported(
+                "Bundle adjustment on the sparse row layout (duplicate pairs or a grid under a third full)",
+                "item 16, sparse row and obs-minor layouts",
+            )
+        problem = make_dense_problem(
+            cam_idx,
+            obj_idx,
+            uv,
+            views.K.numpy(),
+            views.dist.numpy(),
+            views.fisheye.numpy(),
+            n_points=Pb,
+            refine_intrinsics=refine_intrinsics,
+            dtype=self.dtype,
+            device=self.device,
+        )
+        config = BAConfig(
+            loss=loss,
+            f_scale=f_scale,
+            max_iter=max_nfev if max_nfev is not None else 200,
+            ftol=ftol,
+            solver=solver,
+        )
+        logger.info(f"Beginning bundle adjustment on {N_real} observations ({Pb} bucketed points)")
+        result = lm_solve(problem, initial_cam9(self.camera_array), X0, config, fused_schur=fused_schur)
+
+        termination = "converged_ftol" if result.converged else "max_iterations"
+        if strict and not result.converged:
+            raise CalibrationError(
+                f"Bundle adjustment did not converge: {termination}\n"
+                f"Pass strict=False to suppress this error and inspect the result."
+            )
+
+        new_cameras = self.camera_array.copy()
+        for i, cid in enumerate(sorted(new_cameras.posed_cameras.keys())):
+            cam = new_cameras.cameras[cid]
+            cam.extrinsics_from_vector(result.cam9[i, :6])
+            if refine_intrinsics:
+                s, k1, k2 = result.cam9[i, 6:]
+                cam.matrix = cam.matrix.copy()
+                cam.matrix[0, 0] *= s
+                cam.matrix[1, 1] *= s
+                d = cam.distortions.copy()
+                d[0], d[1] = k1, k2
+                cam.distortions = d
+
+        status = OptimizationStatus(
+            converged=result.converged,
+            termination_reason=termination,
+            iterations=result.n_iterations,
+            final_cost=result.cost_final,
+            bound_warnings=tuple(bound_warnings(result.cam9)) if refine_intrinsics else (),
+        )
+        return self._derived(
+            camera_array=new_cameras,
+            world_points=self.world_points.with_xyz(result.X[:P_real].cpu().numpy().astype(np.float64)),
+            _optimization_status=status,
+        )
+
+    def depth_ratios(self) -> dict[int, float]:
+        return compute_depth_ratios(self.camera_array, self.world_points)
+
+    # ---- filtering ----------------------------------------------------------
+    def _filter_by_thresholds(self, thresholds: dict[int, float], min_per_camera: int) -> "CaptureVolume":
+        """Per-camera error thresholds with a keep-at-least floor; prunes
+        orphaned world points, preserving static points that retain
+        observations."""
+        raw = self.reprojection_report.raw_errors
+        euclid = raw.euclidean_error
+        thr = np.array([thresholds.get(int(c), np.inf) for c in raw.cam_id])
+        keep = euclid <= thr
+        for cid in np.unique(raw.cam_id):
+            sel = raw.cam_id == cid
+            n_keep, n_total = int(keep[sel].sum()), int(sel.sum())
+            if n_keep < min_per_camera and n_keep < n_total:
+                n_needed = min(min_per_camera, n_total) - n_keep
+                dropped = euclid[sel & ~keep]
+                if len(dropped) >= n_needed:
+                    add_thr = np.sort(dropped)[n_needed - 1]
+                    keep[sel] = euclid[sel] <= add_thr
+
+        keep_keys = {
+            (int(s), int(c), int(o), int(k))
+            for s, c, o, k in zip(raw.sync_index[keep], raw.cam_id[keep], raw.object_id[keep], raw.keypoint_id[keep])
+        }
+        ip = self.image_points
+        ip_keep = np.array(
+            [
+                (int(s), int(c), int(o), int(k)) in keep_keys
+                for s, c, o, k in zip(ip.sync_index, ip.cam_id, ip.object_id, ip.keypoint_id)
+            ]
+        )
+        new_ip = ip.select(ip_keep)
+
+        # prune orphaned world points
+        obs_keys = {
+            (int(s), int(o), int(k)) for s, o, k in zip(new_ip.sync_index, new_ip.object_id, new_ip.keypoint_id)
+        }
+        static_obs_keys = {(int(o), int(k)) for o, k in zip(new_ip.object_id, new_ip.keypoint_id)}
+        wp = self.world_points
+        wp_keep = np.array(
+            [
+                (
+                    ((int(o), int(k)) in static_obs_keys)
+                    if int(s) == STATIC_SYNC_INDEX
+                    else ((int(s), int(o), int(k)) in obs_keys)
+                )
+                for s, o, k in zip(wp.sync_index, wp.object_id, wp.keypoint_id)
+            ]
+        )
+        return self._derived(image_points=new_ip, world_points=wp.select(wp_keep))
+
+    def filter_by_absolute_error(self, max_pixels: float, min_per_camera: int = 10) -> "CaptureVolume":
+        if max_pixels <= 0:
+            raise ValueError(f"A non-positive pixel threshold ({max_pixels}) would drop every observation")
+        if min_per_camera < 1:
+            raise ValueError(f"The per-camera safety floor must keep at least one observation (got {min_per_camera})")
+        thresholds = {cid: max_pixels for cid in self.camera_array.posed_cameras}
+        return self._filter_by_thresholds(thresholds, min_per_camera)
+
+    def filter_by_percentile_error(
+        self,
+        percentile: float,
+        scope: Literal["per_camera", "overall"] = "per_camera",
+        min_per_camera: int = 10,
+    ) -> "CaptureVolume":
+        """Remove the worst N% of observations by reprojection error."""
+        if not (0 < percentile <= 100):
+            raise ValueError(f"Filter percentile {percentile} falls outside (0, 100]")
+        if min_per_camera < 1:
+            raise ValueError(f"The per-camera safety floor must keep at least one observation (got {min_per_camera})")
+        raw = self.reprojection_report.raw_errors
+        euclid = raw.euclidean_error
+        keep_pct = 100 - percentile
+        if scope == "per_camera":
+            thresholds = {}
+            for cid in self.camera_array.posed_cameras:
+                errs = euclid[raw.cam_id == cid]
+                thresholds[cid] = float(np.percentile(errs, keep_pct)) if len(errs) else float(np.inf)
+        elif scope == "overall":
+            g = float(np.percentile(euclid, keep_pct))
+            thresholds = {cid: g for cid in self.camera_array.posed_cameras}
+        else:
+            raise ValueError(f"Unknown filter scope {scope!r}; use per_camera or overall")
+        return self._filter_by_thresholds(thresholds, min_per_camera)
