@@ -1,18 +1,25 @@
 """caliscope_tpu_torch: the PyTorch/CUDA port of caliscope_tpu.
 
 The port grows slice by slice beside the JAX package (`caliscope_tpu/`),
-which stays the reference every module here is held against. This first
+which stays the reference every module here is held against. The first
 slice carries the bundle-adjustment solve: cameras and observations,
 triangulation, the dense point-minor reprojection blocks, the
 Levenberg-Marquardt loop with its Schur solve, and `CaptureVolume.optimize`
 / `filter_by_percentile_error`. The Schur assembly runs as a hand-written
 CUDA kernel (`csrc/schur_s_rhs.cu`, bound in `solvers/fused_schur.py`).
+The second slice carries ChArUco detection, frames to `PointPacket`s
+through `trackers.CharucoTracker`, with its labeling, ring-response and
+window-gather kernels (`csrc/ccl.cu`, `csrc/corner_response.cu`,
+`csrc/extract_windows.cu`, bound in `detect/ccl.py` and
+`detect/cuda_kernels.py`).
 
 Devices: every entry point (`CaptureVolume`, `lm_solve`,
-`ImagePoints.triangulate`) runs on the CUDA device unless the caller passes
+`ImagePoints.triangulate`, `CharucoTracker`, `detect_markers`,
+`detect_x_corners_device`) runs on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device it raises instead of falling back.
-Float dtype follows the device unless given: float32 on CUDA, float64 on
-the CPU (the JAX package's x64 parity convention).
+The solve's float dtype follows the device unless given: float32 on CUDA,
+float64 on the CPU (the JAX package's x64 parity convention). Detection
+runs in float32 on both, as the reference's detection does.
 
 Process-global side effect: importing this package disables TF32 for
 float32 matrix products and convolutions

@@ -1,0 +1,115 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel is one `csrc/<name>.cu` with a plain C interface. At first use
+it is compiled with nvcc for sm_90a into a shared library under
+`caliscope_tpu_torch/_build/` (named by a hash of the source and the flags,
+so a changed source is rebuilt and an unchanged one is reused) and loaded
+with ctypes. nvcc is looked for under CUDA_HOME / CUDA_PATH, on PATH, and
+under /usr/local/cuda. Nothing here runs when the package is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+_PKG_DIR = Path(__file__).resolve().parent
+CSRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+KERNELS = ("schur_s_rhs", "ccl", "corner_response", "extract_windows")
+
+# kernel name -> nvcc's output and the seconds of the build this process ran;
+# "" and 0.0 for a library that was found already built
+build_logs: dict[str, str] = {}
+build_seconds: dict[str, float] = {}
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def source_path(name: str) -> Path:
+    return CSRC_DIR / f"{name}.cu"
+
+
+def find_nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if root and Path(root, "bin", "nvcc").exists():
+            return str(Path(root, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if Path("/usr/local/cuda/bin/nvcc").exists():
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError("nvcc not found (set CUDA_HOME); it is needed to build the kernels under csrc/")
+
+
+def library_path(name: str) -> Path:
+    source = source_path(name)
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu unless a library built from the same source
+    and flags is already there. Returns the library's path."""
+    out = library_path(name)
+    if out.exists():
+        # reused: this process ran no build of it (unless an earlier call did)
+        build_seconds.setdefault(name, 0.0)
+        build_logs.setdefault(name, "")
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".{out.name}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    build_seconds[name] = time.perf_counter() - t0
+    build_logs[name] = proc.stdout
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed to build {name}.cu:\n{proc.stdout}")
+    os.replace(tmp, out)
+    return out
+
+
+def build_all(names=KERNELS) -> dict[str, Path]:
+    """Build several kernels at once: one nvcc process each, all started
+    together."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if need be. The
+    caller sets argtypes and restypes of the functions it calls."""
+    if name not in _libs:
+        _libs[name] = ctypes.CDLL(str(build(name)))
+    return _libs[name]
+
+
+def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
+    """Raise if a launch function of `lib` returned a CUDA error code.
+    Every library exports `<name>_error_string(int) -> const char*`."""
+    if err != 0:
+        text = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {text} ({err})")
+
+
+def bind(lib: ctypes.CDLL, name: str, launch_argtypes) -> None:
+    """Declare the C signatures of `<name>_launch` and `<name>_error_string`."""
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = list(launch_argtypes)
+    fn.restype = ctypes.c_int
+    es = getattr(lib, f"{name}_error_string")
+    es.argtypes = [ctypes.c_int]
+    es.restype = ctypes.c_char_p

@@ -13,6 +13,10 @@ Exporting from caliscope_tpu (in a program that has both packages):
             for cid, c in jax_cameras.cameras.items()}
     ip = {name: getattr(jax_points, name) for name in IMAGE_POINT_FIELDS}
     wp = {name: getattr(jax_world, name) for name in WORLD_POINT_FIELDS}
+    board = dataclasses.asdict(jax_charuco)
+
+Detection has no other state: the ArUco dictionary data is a byte-identical
+copy inside the port, and packets are numpy on both sides.
 """
 
 from __future__ import annotations
@@ -23,10 +27,14 @@ import numpy as np
 
 from caliscope_tpu_torch.cameras import CameraArray, CameraData
 from caliscope_tpu_torch.observations import ImagePoints, WorldPoints
+from caliscope_tpu_torch.targets.charuco import Charuco
 
 CAMERA_FIELDS = ("matrix", "distortions", "rotation", "translation", "size", "fisheye")
 IMAGE_POINT_FIELDS = ("sync_index", "cam_id", "object_id", "keypoint_id", "img_xy", "obj_loc", "frame_time")
 WORLD_POINT_FIELDS = ("sync_index", "object_id", "keypoint_id", "xyz", "frame_time")
+CHARUCO_FIELDS = (
+    "rows", "columns", "square_size_m", "aruco_scale", "dictionary", "legacy_pattern", "thickness_m", "inverted",
+)
 
 
 def _copy(v):
@@ -62,3 +70,12 @@ def image_points(columns: Mapping[str, Any]) -> ImagePoints:
 def world_points(columns: Mapping[str, Any]) -> WorldPoints:
     """Columns named as WORLD_POINT_FIELDS (frame_time optional)."""
     return WorldPoints(**{k: _copy(columns.get(k)) for k in WORLD_POINT_FIELDS})
+
+
+def charuco(fields: Mapping[str, Any]) -> Charuco:
+    """The board's dataclass fields (CHARUCO_FIELDS; rows, columns and
+    square_size_m are required) -> the port's Charuco."""
+    unknown = set(fields) - set(CHARUCO_FIELDS)
+    if unknown:
+        raise ValueError(f"charuco: unknown fields {sorted(unknown)}")
+    return Charuco(**dict(fields))

@@ -14,8 +14,8 @@ none of them negated — exactly what bundle._solve_schur consumes.
 
 `schur_s_rhs` is the kernel wrapper. On CUDA tensors it launches the
 hand-written kernel in csrc/schur_s_rhs.cu, which is compiled with nvcc
-into a plain-C shared library on first use (cached by source hash under
-caliscope_tpu_torch/_build/) and loaded with ctypes. On CPU tensors, and
+into a plain-C shared library on first use and loaded with ctypes (the
+shared build helper, caliscope_tpu_torch/_cuda_build.py). On CPU tensors, and
 only there, it computes `schur_s_rhs_plain`. It raises on anything the
 kernel cannot take, on either device; whether to use it at all is the
 solver's decision (`fused_schur_available`).
@@ -24,25 +24,14 @@ solver's decision (`fused_schur_available`).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-_PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PKG_DIR / "csrc" / "schur_s_rhs.cu"
-BUILD_DIR = _PKG_DIR / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from caliscope_tpu_torch import _cuda_build
+
 MAX_CAMERAS = 16  # the shared-memory plan's bound; checked against the library
 
 _lib = None
-build_log = ""  # nvcc's output from the build this process ran, if any
 
 
 # ---------------------------------------------------------------------------
@@ -101,48 +90,12 @@ def schur_s_rhs_plain(Jc, Jp, w, bp_t, lam):
 # ---------------------------------------------------------------------------
 
 
-def _find_nvcc() -> str:
-    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
-        if root and Path(root, "bin", "nvcc").exists():
-            return str(Path(root, "bin", "nvcc"))
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    if Path("/usr/local/cuda/bin/nvcc").exists():
-        return "/usr/local/cuda/bin/nvcc"
-    raise RuntimeError("nvcc not found (set CUDA_HOME); it is needed to build csrc/schur_s_rhs.cu")
-
-
-def build_library() -> Path:
-    """Compile csrc/schur_s_rhs.cu into the build directory unless a library
-    built from the same source and flags is already there. Returns its path."""
-    global build_log
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libschur_s_rhs_{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{out.name}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)], capture_output=True, text=True
-    )
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{build_log}")
-    os.replace(tmp, out)
-    return out
-
-
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
+        lib = _cuda_build.load("schur_s_rhs")
         p = ctypes.c_void_p
-        lib.schur_s_rhs_launch.argtypes = [p] * 10 + [ctypes.c_int] * 3 + [p]
-        lib.schur_s_rhs_launch.restype = ctypes.c_int
-        lib.schur_s_rhs_error_string.argtypes = [ctypes.c_int]
-        lib.schur_s_rhs_error_string.restype = ctypes.c_char_p
+        _cuda_build.bind(lib, "schur_s_rhs", [p] * 10 + [ctypes.c_int] * 3 + [p])
         lib.schur_s_rhs_max_cameras.argtypes = []
         lib.schur_s_rhs_max_cameras.restype = ctypes.c_int
         lib.schur_s_rhs_tile_points.argtypes = []
@@ -214,10 +167,7 @@ def schur_s_rhs(Jc, Jp, w, bp_t, lam):
             S.data_ptr(), rhs.data_ptr(), hinv.data_ptr(), s_part.data_ptr(), rhs_part.data_ptr(),
             C, P, n_blocks, torch.cuda.current_stream(device).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"schur_s_rhs kernel launch failed: {lib.schur_s_rhs_error_string(err).decode()} ({err})"
-        )
+    _cuda_build.check_launch(lib, "schur_s_rhs", err)
     schur_s_rhs.launches += 1
     return S, rhs, hinv
 

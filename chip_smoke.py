@@ -8,21 +8,31 @@ repository checkout beside this file; it exits non-zero without them and
 on any failed check. Phases:
 
 1. Versions, and the card's name and power limit as nvidia-smi reports them.
-2. Build every kernel of the port from the checkout's sources (nvcc, at
-   first use, into caliscope_tpu_torch/_build/).
-3. Kernel phase: each kernel against its plain PyTorch version on the card,
-   at the main path's shapes (and a ragged one), with its times (CUDA
-   events, median of warm repetitions), a one-call PyTorch yardstick and
-   the least time the card could take for the same work.
-4. Slice phase: the canonical real-session bundle-adjustment problem
+2. Build all four kernels of the port from the checkout's sources (one nvcc
+   process each, started together, into caliscope_tpu_torch/_build/).
+3. Kernel phases: each kernel against its plain PyTorch version on the card,
+   at the main paths' shapes (and ragged ones), with its times (CUDA
+   events, median of warm repetitions), a one-call PyTorch yardstick where
+   one call computes the function, and the least time the card could take
+   for the same work.
+4. Detection slice: 16 rendered 1280x720 views of a 5x7 ChArUco board (the
+   recipe of bench.py's detection workload, warped in numpy) through
+   CharucoTracker.get_points_batch on the card — corners found, accuracy
+   against the known homographies, a repeated call, the card's result
+   against the port's own CPU result on two frames, the kernels' launch
+   counts per device-program dispatch, wall time and a profile.
+5. BA slice: the canonical eight-camera bundle-adjustment problem
    (8 cameras, 35,000 points, 141,422 observations, 0.5 px noise; the
    recipe of bench.py, perturbed initial translations) through
    CaptureVolume on the card — linear BA, robust BA with intrinsics, 2.5 %
-   percentile filter, final BA — with the kernels' launch counts, the
+   percentile filter, final BA — with the kernel's launch count, the
    kernel-less Schur path's final cost, and the recovered rig against the
    truth.
-5. A `kernels` JSON line, then the last line
+6. A `kernels` JSON line, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+Each slice's launch counts are set to 0 just before it is driven and read
+just after; launches made to compare or time a kernel do not count.
 """
 
 from __future__ import annotations
@@ -59,6 +69,21 @@ BLOCK_RTOL = 1e-4
 SOLVE_COST_RTOL = 1e-5
 MAX_FINAL_RMSE_PX = 1.0
 MAX_CENTER_ERROR_M = 0.005
+
+# The detection workload: bench.py's (16 frames of 1280x720 uint8, a 5x7
+# DICT_4X4_50 board at 100 px per square, outline jittered +-40 px, rng 3).
+DETECT_BATCH = 16
+DETECT_WH = (1280, 720)
+DETECT_BASE_QUAD = ((200, 90), (1080, 120), (1040, 620), (240, 600))
+# Ring response, kernel vs plain version: both do the same single IEEE
+# float32 operations in the same order, so they are expected to be equal;
+# the tolerance is the reference suite's for its kernel against its twin.
+RESPONSE_RTOL, RESPONSE_ATOL = 1e-4, 1e-3
+MIN_FOUND_FRACTION = 0.9
+MAX_CORNER_ERROR_PX, MAX_MEAN_CORNER_ERROR_PX = 0.6, 0.3
+# the card's packets against the port's CPU packets on the same frames
+# (float sums in another order; the CPU tests hold 0.02 px against JAX)
+GPU_VS_CPU_ATOL_PX = 0.05
 
 # Published peaks (bytes/s, non-tensor FP32 operations/s) of the card the
 # bounds are computed for, keyed by torch.cuda.get_device_name(): the H100
@@ -275,6 +300,265 @@ def kernel_phase(device, peaks):
     return entry
 
 
+
+# ---------------------------------------------------------------------------
+# Detection: data, kernel phases, slice
+# ---------------------------------------------------------------------------
+
+
+def detect_frames(n=DETECT_BATCH):
+    """(board, frames (n, 720, 1280) uint8, true corner positions per frame)."""
+    import numpy as np
+
+    from caliscope_tpu_torch.targets import render
+    from caliscope_tpu_torch.targets.charuco import Charuco
+
+    ch = Charuco(rows=5, columns=7, square_size_m=0.054)
+    board = ch.board_image(px_per_square=100, margin_squares=0.5)
+    corners = render.board_corner_pixels(ch, 100, 0.5)
+    rng = np.random.default_rng(3)
+    frames, truths = [], []
+    for _ in range(n):
+        dst = np.array(DETECT_BASE_QUAD, np.float64) + rng.uniform(-40, 40, size=(4, 2))
+        frame, H = render.board_view(board, dst, DETECT_WH)
+        frames.append(frame)
+        truths.append(render.project(H, corners))
+    return ch, np.stack(frames), truths
+
+
+def bound_entry(name, source, replaces, err, ms, plain_ms, library_ms, bytes_, ops, peaks, what):
+    """A `kernels` entry with the bound computed from this run's bytes and
+    operations, and its arithmetic logged."""
+    mem_rate, f32_rate = peaks
+    t_bytes, t_ops = bytes_ / mem_rate * 1e3, ops / f32_rate * 1e3
+    entry = {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": None,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms,
+    }
+    lib = "none (no single PyTorch call computes it)" if library_ms is None else f"{library_ms:.4f} ms"
+    log(
+        f"kernel {name} {what}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library call {lib}); needs "
+        f"{bytes_ / 1e6:.2f} MB -> {t_bytes * 1e3:.2f} us at {mem_rate / 1e12:.2f} TB/s, {ops / 1e9:.4f} G operations -> "
+        f"{t_ops * 1e3:.2f} us at {f32_rate / 1e12:.1f} T/s; bound {entry['bound_ms'] * 1e3:.2f} us by {entry['bound_by']}, "
+        f"the kernel at {100 * entry['bound_ms'] / ms:.1f} % of it"
+    )
+    return entry
+
+
+def detect_kernel_phase(device, peaks, frames):
+    """Kernels 2-4 against their plain versions on the card, and their
+    times at the detection path's shapes. Returns their `kernels` entries."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from caliscope_tpu_torch.detect import ccl as CCL
+    from caliscope_tpu_torch.detect import cuda_kernels as CK
+    from caliscope_tpu_torch.detect import kernels as DK
+    from caliscope_tpu_torch.trackers.charuco_tracker import _RUN_CHUNK
+
+    rng = np.random.default_rng(5)
+    on_card = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    counts = (CCL.connected_components.launches, CK.corner_response.launches, CK.extract_windows.launches)
+    imgs = on_card(frames[:_RUN_CHUNK]).to(torch.float32)  # one dispatch's frames
+    B, H, W = imgs.shape
+
+    # ---- kernel 2: labeling. Masks: the port's own threshold of the frames
+    # (what the path labels), random masks, and ragged shapes.
+    integral = DK.integral_image(imgs)
+    board_mask = (DK.adaptive_threshold(imgs, 10, 7.0, integral) | DK.adaptive_threshold(imgs, 26, 7.0, integral)).contiguous()
+    del integral
+    cases = [("threshold of the frames", board_mask, (4,)), ("random 45 %", on_card(rng.uniform(size=(B, H, W)) < 0.45), (4,))]
+    for shape, p in (((2, 70, 130), 0.55), ((1, 40, 136), 0.35)):
+        cases.append((f"random {shape}", on_card(rng.uniform(size=shape) < p), (0, 1, 4, 12)))
+    cases.append(("threshold crop (2,70,130)", board_mask[:2, 300:370, 500:630].contiguous(), (1, 4, 12)))
+    # taller than the 1,760 rows of a column strip the kernel stages at once
+    # (2 and 3 segments), dense, with a hook down column 0, along the last
+    # row and up column 2, whose minimum has to climb across the segments
+    for shape, p in (((1, 2160, 96), 0.9), ((2, 3601, 33), 0.97)):
+        tall = rng.uniform(size=shape) < p
+        tall[:, :, :4] = False
+        tall[:, :, 0] = tall[:, -1, :3] = tall[:, 5:, 2] = True
+        cases.append((f"tall random {shape}", on_card(tall), (1, 4, 12)))
+    for what, mask, iters in cases:
+        for n_iters in iters:
+            got = CCL.connected_components(mask, n_iters)
+            want = CCL.connected_components_plain(mask, n_iters)
+            torch.cuda.synchronize()
+            if got.dtype != torch.int32 or not torch.equal(got, want):
+                raise AssertionError(
+                    f"ccl {what} {tuple(mask.shape)} n_iters={n_iters}: {int((got != want).sum())} labels differ from the plain version"
+                )
+        log(f"kernel ccl {what} {tuple(mask.shape)} n_iters={list(iters)}: labels equal the plain version's")
+    ccl_entry = bound_entry(
+        "ccl", "caliscope_tpu_torch/csrc/ccl.cu", "caliscope_tpu/detect/pallas_ccl.py:99", 0.0,
+        time_ms(lambda: CCL.connected_components(board_mask, 4)),
+        time_ms(lambda: CCL.connected_components_plain(board_mask, 4), reps=3, rounds=3), None,
+        # mask read once (1 B/px), labels written once (4 B/px); per pixel and
+        # round two min-or-keep steps (one per pass), counted at the FP32
+        # lanes' rate (the data sheet gives no integer rate; bytes bound it
+        # by two orders of magnitude either way)
+        B * H * W * 5, B * H * W * 2 * 4, peaks, f"({B},{H},{W}) bool, n_iters=4",
+    )
+
+    # ---- kernel 3: ring response
+    err = 0.0
+    for what, x in (("frames", imgs), ("random (2,97,131)", on_card(rng.uniform(0, 255, size=(2, 97, 131)).astype(np.float32)))):
+        got, want = CK.corner_response(x), CK.corner_response_plain(x)
+        torch.cuda.synchronize()
+        diff = float((got - want).abs().max())
+        if not torch.isfinite(got).all() or not torch.allclose(got, want, rtol=RESPONSE_RTOL, atol=RESPONSE_ATOL):
+            raise AssertionError(f"corner_response {what}: max |kernel - plain| {diff:.3e} beyond rtol {RESPONSE_RTOL}, atol {RESPONSE_ATOL}")
+        if what == "frames":
+            err = diff
+        log(f"kernel corner_response {what} {tuple(x.shape)}: max |kernel - plain| {diff:.3e} (rtol {RESPONSE_RTOL}, atol {RESPONSE_ATOL}), max response {float(want.max()):.1f}")
+    # what the function needs per pixel on these taps: a bilinear blend (6
+    # products + 3 sums) for a tap off the pixel grid in both axes, one
+    # product pair and sum for a tap off it in one axis, nothing for a tap on
+    # a whole pixel (weights 1 and 0 to within 1e-6; the kernel blends those
+    # too, to keep the plain version's arithmetic); then 16 differences + 16
+    # sums for sr and dr, 16 sums and a division for the mean, 5 for mr and
+    # the result
+    _, tap_weights = CK.ring_taps()
+    off_grid = (tap_weights.reshape(-1, 2, 2).min(axis=2) > 1e-6).sum(axis=1)  # axes to blend, per tap
+    tap_ops = int((off_grid == 2).sum()) * 9 + int((off_grid == 1).sum()) * 3
+    flops_px = tap_ops + 32 + 17 + 5
+    log(
+        f"kernel corner_response: {int((off_grid == 2).sum())} taps off the pixel grid in both axes, {int((off_grid == 1).sum())} "
+        f"in one, {int((off_grid == 0).sum())} on it: {tap_ops} + 54 = {flops_px} operations a pixel"
+    )
+    resp_entry = bound_entry(
+        "corner_response", "caliscope_tpu_torch/csrc/corner_response.cu", "caliscope_tpu/detect/pallas_kernels.py:94", err,
+        time_ms(lambda: CK.corner_response(imgs)), time_ms(lambda: CK.corner_response_plain(imgs), reps=3, rounds=3), None,
+        B * H * W * 8, B * H * W * flops_px, peaks, f"({B},{H},{W}) f32",
+    )
+
+    # ---- kernel 4: windows, at both callers' shapes (seeds: random, every
+    # clip corner, and a few outside the frame, which both versions clamp)
+    def seeds(Hp, Wp, K, win):
+        yi = rng.integers(0, Hp - win + 1, size=(B, K)).astype(np.int32)
+        xi = rng.integers(0, Wp - win + 1, size=(B, K)).astype(np.int32)
+        yi[:, :6] = [0, 0, Hp - win, Hp - win, -7, Hp]
+        xi[:, :6] = [0, Wp - win, 0, Wp - win, Wp + 3, -1]
+        return on_card(yi), on_card(xi)
+
+    padded = F.pad(imgs[:, None], (14, 14, 14, 14), mode="replicate")[:, 0].contiguous()  # the subpixel stage's frames
+    atlas = on_card(rng.integers(0, 2**31 - 1, size=(B, H + H // 2 + H // 4 + 96, W)).astype(np.int32))  # the patch atlas's shape
+    win_results = {}
+    for what, src, K, win in (("corner windows", padded, 256, 28), ("atlas patches", atlas, 64, 96), ("ragged", padded[:2, :97, :131].contiguous(), 8, 28)):
+        yi, xi = seeds(src.shape[1], src.shape[2], K, win)
+        yi, xi = yi[: src.shape[0]].contiguous(), xi[: src.shape[0]].contiguous()
+        got, want = CK.extract_windows(src, yi, xi, win), CK.extract_windows_plain(src, yi, xi, win)
+        torch.cuda.synchronize()
+        if got.dtype != src.dtype or not torch.equal(got, want):
+            raise AssertionError(f"extract_windows {what}: windows differ from the plain version's")
+        log(f"kernel extract_windows {what} {tuple(src.shape)} {src.dtype} K={K} win={win}: windows equal the plain version's")
+        if what == "ragged":
+            continue
+        # the one-call yardstick: the advanced-indexing gather on prebuilt indices
+        ar = torch.arange(win, device=device)
+        bi = torch.arange(src.shape[0], device=device)[:, None, None, None]
+        yy = yi.long().clamp(0, src.shape[1] - win)[:, :, None, None] + ar[:, None]
+        xx = xi.long().clamp(0, src.shape[2] - win)[:, :, None, None] + ar[None, :]
+        win_results[what] = dict(
+            ms=time_ms(lambda: CK.extract_windows(src, yi, xi, win)),
+            plain_ms=time_ms(lambda: CK.extract_windows_plain(src, yi, xi, win)),
+            library_ms=time_ms(lambda: src[bi, yy, xx]),
+            bytes=B * K * (2 * 4 * win * win + 8), shape=f"{tuple(src.shape)} {str(src.dtype).split('.')[-1]}, K={K}, win={win}",
+        )
+    a, c = win_results["atlas patches"], win_results["corner windows"]
+    win_entry = bound_entry(
+        "extract_windows", "caliscope_tpu_torch/csrc/extract_windows.cu", "caliscope_tpu/detect/pallas_kernels.py:203", 0.0,
+        a["ms"], a["plain_ms"], a["library_ms"], a["bytes"], 0, peaks, a["shape"],
+    )
+    corner_caller = bound_entry(
+        "extract_windows", win_entry["source"], win_entry["replaces"], 0.0,
+        c["ms"], c["plain_ms"], c["library_ms"], c["bytes"], 0, peaks, c["shape"],
+    )
+    win_entry["corner_windows_caller"] = {k: corner_caller[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+
+    # comparing and timing launches are not a path's
+    CCL.connected_components.launches, CK.corner_response.launches, CK.extract_windows.launches = counts
+    return [ccl_entry, resp_entry, win_entry]
+
+
+def _same_packets(got, want, atol, what):
+    import numpy as np
+
+    for b, (g, w) in enumerate(zip(got, want)):
+        if not (np.array_equal(g.keypoint_id, w.keypoint_id) and np.array_equal(g.object_id, w.object_id)):
+            raise AssertionError(f"detection: frame {b}: {what}: different corner identities")
+        if len(g) and not np.abs(g.img_loc - w.img_loc).max() <= atol:
+            raise AssertionError(f"detection: frame {b}: {what}: img_loc differs by {np.abs(g.img_loc - w.img_loc).max():.3e} px")
+
+
+def detect_slice_phase(device, ch, frames, truths, smi_line):
+    """The 16-frame stack through CharucoTracker.get_points_batch on the
+    card. Returns (launch counts of kernels 2-4, dispatches) of the warm call."""
+    import numpy as np
+    import torch
+
+    from caliscope_tpu_torch.detect import ccl as CCL
+    from caliscope_tpu_torch.detect import cuda_kernels as CK
+    from caliscope_tpu_torch.trackers import CharucoTracker
+    from caliscope_tpu_torch.trackers.charuco_tracker import _RUN_CHUNK
+
+    tracker = CharucoTracker(ch)  # the default device: CUDA
+    if tracker.device.type != "cuda":
+        raise AssertionError(f"CharucoTracker resolved to {tracker.device}, not the card")
+    t0 = time.perf_counter()
+    first = tracker.get_points_batch(frames, 0)
+    sync(device)
+    first_s = time.perf_counter() - t0
+
+    # the main path's run: counts from 0 just before, read just after
+    CCL.connected_components.launches = CK.corner_response.launches = CK.extract_windows.launches = 0
+    before = tracker.dispatches
+    sync(device)
+    t0 = time.perf_counter()
+    packets = tracker.get_points_batch(frames, 0)
+    sync(device)
+    warm_s = time.perf_counter() - t0
+    launches = (CCL.connected_components.launches, CK.corner_response.launches, CK.extract_windows.launches)
+    dispatches = tracker.dispatches - before
+
+    n_found = sum(len(p) for p in packets)
+    if len(packets) != len(frames) or n_found < MIN_FOUND_FRACTION * len(frames) * ch.n_corners:
+        raise AssertionError(f"detection: found {n_found} of {len(frames) * ch.n_corners} corners")
+    errs = np.concatenate([np.linalg.norm(p.img_loc - gt[p.keypoint_id], axis=1) for p, gt in zip(packets, truths)])
+    if not (np.isfinite(errs).all() and errs.max() < MAX_CORNER_ERROR_PX and errs.mean() < MAX_MEAN_CORNER_ERROR_PX):
+        raise AssertionError(f"detection: corner error max {errs.max():.3f} px, mean {errs.mean():.3f} px")
+    for p in packets:
+        if not ((p.object_id == 0).all() and np.allclose(p.obj_loc, ch.object_corners(0)[p.keypoint_id])):
+            raise AssertionError("detection: wrong object identity or obj_loc")
+    _same_packets(packets, first, 0.0, "second call against the first")
+    if launches != (dispatches, dispatches, 2 * dispatches) or dispatches < -(-len(frames) // _RUN_CHUNK):
+        raise AssertionError(f"detection: launches (ccl, response, windows) {launches} for {dispatches} dispatches")
+    cpu = CharucoTracker(ch, device="cpu").get_points_batch(frames[:2], 0)
+    _same_packets(packets[:2], cpu, GPU_VS_CPU_ATOL_PX, "the card against the port on the CPU")
+    gap = max(float(np.abs(g.img_loc - w.img_loc).max()) for g, w in zip(packets[:2], cpu))
+    log(
+        f"detection slice: {len(frames)} frames {frames.shape[2]}x{frames.shape[1]} on {device}: {n_found} of "
+        f"{len(frames) * ch.n_corners} corners, error max {errs.max():.4f} px mean {errs.mean():.4f} px; first call "
+        f"{first_s:.3f} s, warm call {warm_s:.4f} s = {len(frames) / warm_s:.1f} frames/s [{smi_line}]; {dispatches} "
+        f"dispatches, launches ccl {launches[0]} response {launches[1]} windows {launches[2]}; the card's packets "
+        f"within {gap:.2e} px of the port's CPU packets on 2 frames"
+    )
+    times = []
+    for _ in range(5):
+        sync(device)
+        t0 = time.perf_counter()
+        tracker.get_points_batch(frames, 0)
+        sync(device)
+        times.append(time.perf_counter() - t0)
+    log(f"detection slice: 5 more warm calls: {' '.join(f'{t:.4f}' for t in times)} s (best {len(frames) / min(times):.1f} frames/s)")
+    prof = profile_call(device, lambda: tracker.get_points_batch(frames, 0), top=12)
+    log("detection profile (one warm call) " + (json.dumps(prof) if prof else "not measured (the profiler recorded no device time)"))
+    CCL.connected_components.launches, CK.corner_response.launches, CK.extract_windows.launches = launches
+    return launches, dispatches
+
+
 STAGES = (
     ("linear BA", lambda v: v.optimize()),
     (
@@ -454,26 +738,21 @@ def lm_iteration_times(device, volume, iters=10):
     return min(times[True]), min(times[False]), problem.n_points
 
 
-def profile_lm_iterations(device, volume, iters=3):
-    """torch.profiler over a fixed-iteration kernel-path solve of the
-    filtered canonical problem: wall ms per iteration (with the profiler's
-    own overhead), device-busy share (sum of GPU kernel times over wall
-    time; one stream, so kernels do not overlap), GPU kernels launched per
-    iteration, and the top kernels and the top operators (with their input
-    shapes) by device time. Returns None when the profiler records no
-    device time."""
+def profile_call(device, fn, units=1, top=6):
+    """torch.profiler over one call of `fn` (after a warm one): wall ms (with
+    the profiler's own overhead), device-busy share (sum of GPU kernel times
+    over wall time; one stream, so kernels do not overlap), GPU kernels
+    launched, and the top kernels and the top operators (with their input
+    shapes) by device time, each divided by `units`. Returns None when the
+    profiler records no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from caliscope_tpu_torch.solvers import bundle
-
-    problem, cam9, X0 = dense_problem(device, volume)
-    config = bundle.BAConfig(max_iter=iters, ftol=0.0, xtol=0.0, gtol=0.0, solver="schur")
-    bundle.lm_solve(problem, cam9, X0, config)  # warm
+    fn()  # warm
     sync(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
         t0 = time.perf_counter()
-        bundle.lm_solve(problem, cam9, X0, config)
+        fn()
         sync(device)
         wall_us = 1e6 * (time.perf_counter() - t0)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -483,21 +762,28 @@ def profile_lm_iterations(device, volume, iters=3):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     ops = sorted(
         (e for e in prof.key_averages(group_by_input_shape=True) if e.self_device_time_total > 0),
         key=lambda e: -e.self_device_time_total,
-    )[:6]
+    )[:top]
     return {
-        "wall_ms_per_iteration": wall_us / 1e3 / iters,
+        "wall_ms": wall_us / 1e3 / units,
         "device_busy_share": busy_us / wall_us,
-        "device_ms_per_iteration": busy_us / 1e3 / iters,
-        "gpu_kernels_per_iteration": len(kernels) / iters,
-        "top_kernels_device_ms_per_iteration": {name[:60]: us / 1e3 / iters for name, us in top},
-        "top_ops_device_ms_per_iteration": {
-            f"{e.key} {e.input_shapes}"[:100]: e.self_device_time_total / 1e3 / iters for e in ops
-        },
+        "device_ms": busy_us / 1e3 / units,
+        "gpu_kernels": len(kernels) / units,
+        "top_kernels_device_ms": {name[:90]: us / 1e3 / units for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]},
+        "top_ops_device_ms": {f"{e.key} {e.input_shapes}"[:100]: e.self_device_time_total / 1e3 / units for e in ops},
     }
+
+
+def profile_lm_iterations(device, volume, iters=3):
+    """`profile_call` over a fixed-iteration kernel-path solve of the
+    filtered canonical problem, per LM iteration."""
+    from caliscope_tpu_torch.solvers import bundle
+
+    problem, cam9, X0 = dense_problem(device, volume)
+    config = bundle.BAConfig(max_iter=iters, ftol=0.0, xtol=0.0, gtol=0.0, solver="schur")
+    return profile_call(device, lambda: bundle.lm_solve(problem, cam9, X0, config), units=iters)
 
 
 def main() -> int:
@@ -514,7 +800,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import caliscope_tpu_torch  # noqa: F401  (sets the TF32-off defaults)
-    from caliscope_tpu_torch.solvers import fused_schur as FS
+    from caliscope_tpu_torch import _cuda_build
 
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -531,13 +817,24 @@ def main() -> int:
     log(f"peaks used for bounds: {peaks[0] / 1e12:.2f} TB/s, {peaks[1] / 1e12:.1f} TFLOP/s FP32 (non-tensor)")
 
     t0 = time.perf_counter()
-    FS.build_library()
-    log(f"built {FS.SOURCE.name} in {time.perf_counter() - t0:.2f} s")
-    for line in FS.build_log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log("  ptxas: " + line.strip())
+    _cuda_build.build_all()
+    log(f"built {len(_cuda_build.KERNELS)} kernels in {time.perf_counter() - t0:.2f} s, one nvcc process each, started together")
+    for name in _cuda_build.KERNELS:
+        built = _cuda_build.build_logs[name] or _cuda_build.build_seconds[name]
+        log(f"  {name}.cu: " + (f"{_cuda_build.build_seconds[name]:.2f} s" if built else "found already built, reused"))
+        for line in _cuda_build.build_logs[name].splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                log("    ptxas: " + line.strip())
 
     entry = kernel_phase(device, peaks)
+    ch, frames, truths = detect_frames()
+    detect_entries = detect_kernel_phase(device, peaks, frames)
+    t0 = time.perf_counter()
+    detect_launches, dispatches = detect_slice_phase(device, ch, frames, truths, smi_line)
+    log(f"detection slice: {time.perf_counter() - t0:.2f} s in all")
+    for e, n in zip(detect_entries, detect_launches):
+        e["launches"] = n
+
     t0 = time.perf_counter()
     launches, schur_solves, records, filtered = slice_phase(device)
     log(f"slice: {time.perf_counter() - t0:.2f} s; schur_s_rhs launches {launches}, Schur solves {schur_solves}")
@@ -550,8 +847,8 @@ def main() -> int:
         f"{plain_it:.3f} ms without (best of 2 runs of 10 iterations each)"
     )
     prof = profile_lm_iterations(device, filtered)
-    log("profile " + (json.dumps(prof) if prof else "not measured (the profiler recorded no device time)"))
-    log(json.dumps({"kernels": [entry]}))
+    log("profile (per LM iteration) " + (json.dumps(prof) if prof else "not measured (the profiler recorded no device time)"))
+    log(json.dumps({"kernels": [entry, *detect_entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -20,9 +20,18 @@ ROOT = Path(__file__).resolve().parent.parent
 
 SLICE_MODULES = [
     "caliscope_tpu_torch",
+    "caliscope_tpu_torch._cuda_build",
     "caliscope_tpu_torch.cameras",
     "caliscope_tpu_torch.convert",
+    "caliscope_tpu_torch.detect.aruco",
+    "caliscope_tpu_torch.detect.ccl",
+    "caliscope_tpu_torch.detect.corners",
+    "caliscope_tpu_torch.detect.cuda_kernels",
+    "caliscope_tpu_torch.detect.dictionaries",
+    "caliscope_tpu_torch.detect.kernels",
+    "caliscope_tpu_torch.frame_selector",
     "caliscope_tpu_torch.observations",
+    "caliscope_tpu_torch.packets",
     "caliscope_tpu_torch.ops.lie",
     "caliscope_tpu_torch.ops.projection",
     "caliscope_tpu_torch.ops.reprojection",
@@ -32,6 +41,10 @@ SLICE_MODULES = [
     "caliscope_tpu_torch.scale",
     "caliscope_tpu_torch.solvers.bundle",
     "caliscope_tpu_torch.solvers.fused_schur",
+    "caliscope_tpu_torch.targets.charuco",
+    "caliscope_tpu_torch.targets.render",
+    "caliscope_tpu_torch.tracker",
+    "caliscope_tpu_torch.trackers.charuco_tracker",
     "caliscope_tpu_torch.volume",
 ]
 
