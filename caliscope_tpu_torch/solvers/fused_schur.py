@@ -16,9 +16,13 @@ none of them negated — exactly what bundle._solve_schur consumes.
 hand-written kernel in csrc/schur_s_rhs.cu, which is compiled with nvcc
 into a plain-C shared library on first use and loaded with ctypes (the
 shared build helper, caliscope_tpu_torch/_cuda_build.py). On CPU tensors, and
-only there, it computes `schur_s_rhs_plain`. It raises on anything the
-kernel cannot take, on either device; whether to use it at all is the
-solver's decision (`fused_schur_available`).
+only there, it computes `schur_s_rhs_plain`. One kernel takes every shape
+the wrapper accepts: float32, contiguous, 1 to MAX_CAMERAS cameras, any
+point count of at least one (a ragged last tile adds zeros); the S it
+returns is exactly symmetric and the same bits on every run. The wrapper
+raises on anything else, on either device, and a launch that the card
+refuses raises too; whether to use the kernel at all is the solver's
+decision (`fused_schur_available`).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from caliscope_tpu_torch import _cuda_build
 MAX_CAMERAS = 16  # the shared-memory plan's bound; checked against the library
 
 _lib = None
+_n_sm: dict[int, int] = {}  # CUDA device index -> its count of SMs
 
 
 # ---------------------------------------------------------------------------
@@ -95,11 +100,13 @@ def _library():
     if _lib is None:
         lib = _cuda_build.load("schur_s_rhs")
         p = ctypes.c_void_p
-        _cuda_build.bind(lib, "schur_s_rhs", [p] * 10 + [ctypes.c_int] * 3 + [p])
+        _cuda_build.bind(lib, "schur_s_rhs", [p] * 9 + [ctypes.c_int] * 3 + [p])
         lib.schur_s_rhs_max_cameras.argtypes = []
         lib.schur_s_rhs_max_cameras.restype = ctypes.c_int
-        lib.schur_s_rhs_tile_points.argtypes = []
-        lib.schur_s_rhs_tile_points.restype = ctypes.c_int
+        lib.schur_s_rhs_blocks.argtypes = [ctypes.c_int] * 3
+        lib.schur_s_rhs_blocks.restype = ctypes.c_int
+        lib.schur_s_rhs_partial_floats.argtypes = [ctypes.c_int]
+        lib.schur_s_rhs_partial_floats.restype = ctypes.c_int
         if lib.schur_s_rhs_max_cameras() != MAX_CAMERAS:
             raise RuntimeError("schur_s_rhs library and wrapper disagree on the camera bound")
         _lib = lib
@@ -152,19 +159,21 @@ def schur_s_rhs(Jc, Jp, w, bp_t, lam):
         lam = torch.tensor(lam, dtype=torch.float32, device=device)
     lam = lam.reshape(1).contiguous()
     n_cp = 9 * C
-    tile = lib.schur_s_rhs_tile_points()
-    with torch.cuda.device(device):
-        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-        n_blocks = min(-(-P // tile), 2 * n_sm)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    n_sm = _n_sm.get(index)
+    if n_sm is None:
+        n_sm = _n_sm[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    n_blocks = lib.schur_s_rhs_blocks(C, P, n_sm)  # blocks of pass 1
+    partial = lib.schur_s_rhs_partial_floats(C)  # floats each writes for pass 2
+    with torch.cuda.device(index):
         f32 = dict(dtype=torch.float32, device=device)
         S = torch.empty((n_cp, n_cp), **f32)
         rhs = torch.empty((n_cp,), **f32)
         hinv = torch.empty((3, 3, P), **f32)
-        s_part = torch.empty((n_blocks, n_cp, n_cp), **f32)
-        rhs_part = torch.empty((n_blocks, n_cp), **f32)
+        part = torch.empty((n_blocks, partial), **f32)  # pass 1's partial sums
         err = lib.schur_s_rhs_launch(
             Jc.data_ptr(), Jp.data_ptr(), w.data_ptr(), bp_t.data_ptr(), lam.data_ptr(),
-            S.data_ptr(), rhs.data_ptr(), hinv.data_ptr(), s_part.data_ptr(), rhs_part.data_ptr(),
+            S.data_ptr(), rhs.data_ptr(), hinv.data_ptr(), part.data_ptr(),
             C, P, n_blocks, torch.cuda.current_stream(device).cuda_stream,
         )
     _cuda_build.check_launch(lib, "schur_s_rhs", err)

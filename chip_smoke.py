@@ -14,7 +14,10 @@ on any failed check. Phases:
    at the main paths' shapes (and ragged ones), with its times (CUDA
    events, median of warm repetitions), a one-call PyTorch yardstick where
    one call computes the function, and the least time the card could take
-   for the same work.
+   for the same work. The Schur kernel's S must be exactly symmetric and
+   the same bits on a second run; the labeling cases say which of its two
+   paths each took and must cover both and every cluster size; both report
+   their device time by GPU kernel under torch.profiler.
 4. Detection slice: 16 rendered 1280x720 views of a 5x7 ChArUco board (the
    recipe of bench.py's detection workload, warped in numpy) through
    CharucoTracker.get_points_batch on the card — corners found, accuracy
@@ -229,27 +232,37 @@ def kernel_phase(device, peaks):
     import numpy as np
     import torch
 
+    from caliscope_tpu_torch.kernel_times import device_ms_by_kernel
     from caliscope_tpu_torch.solvers import fused_schur as FS
 
-    def inputs(C, P, seed):
+    def inputs(C, P, seed, lam=LAM):
         rng = np.random.default_rng(seed)
         Jc = rng.normal(size=(C, 2, 9, P)).astype(np.float32) * 0.1
         Jp = rng.normal(size=(C, 2, 3, P)).astype(np.float32) * 0.1
         w = rng.uniform(0.5, 1.0, size=(C, 2, P)).astype(np.float32)
         bp = rng.normal(size=(3, P)).astype(np.float32)
-        w[:, :, 7] = 0.0  # one unobserved point: the pinned branch
-        Jp[:, :, :, 7] = 0.0
+        pin = min(7, P - 1)
+        w[:, :, pin] = 0.0  # one unobserved point: the pinned branch
+        Jp[:, :, :, pin] = 0.0
         t = [torch.from_numpy(a).to(device) for a in (Jc, Jp, w, bp)]
-        return t + [torch.tensor([LAM], dtype=torch.float32, device=device)]
+        return t + [torch.tensor([lam], dtype=torch.float32, device=device)]
 
     results = {}
     # the main path's shape (C = 8, P = bucket_size(35001, fine=True)), a
-    # ragged point count, and the camera bound
-    for C, P in ((N_CAMERAS, 40_960), (N_CAMERAS, 12_345), (FS.MAX_CAMERAS, 4_099)):
-        args = inputs(C, P, seed=C * 100_000 + P)
+    # ragged point count, the camera bound, a camera count that is no
+    # multiple of 8 (padded tile rows), and fewer points than one tile. With
+    # one camera every point block has rank 2 and its damped inverse is of
+    # order 1 / lam, which magnifies float32 roundoff by as much: lam = 1 there
+    for C, P in ((N_CAMERAS, 40_960), (N_CAMERAS, 12_345), (FS.MAX_CAMERAS, 4_099), (5, 1_000), (1, 7)):
+        args = inputs(C, P, seed=C * 100_000 + P, lam=1.0 if C == 1 else LAM)
         got = FS.schur_s_rhs(*args)
+        again = FS.schur_s_rhs(*args)
         want = FS.schur_s_rhs_plain(*args)
         torch.cuda.synchronize()
+        if not torch.equal(got[0], got[0].T):
+            raise AssertionError(f"schur_s_rhs C={C} P={P}: S is not exactly symmetric")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"schur_s_rhs C={C} P={P}: two runs on the same inputs gave different bits")
         err = 0.0
         for name, g, w_ in zip(("S", "rhs", "Hpp_inv"), got, want):
             if not torch.isfinite(g).all():
@@ -261,7 +274,10 @@ def kernel_phase(device, peaks):
                     f"{int(bad.sum())} entries (max |diff| {float((g - w_).abs().max()):.3e})"
                 )
             err = max(err, float((g - w_).abs().max()))
-        log(f"kernel schur_s_rhs C={C} P={P}: matches plain (max |diff| {err:.3e}, rtol=atol={KERNEL_RTOL})")
+        log(
+            f"kernel schur_s_rhs C={C} P={P}: matches plain (max |diff| {err:.3e}, rtol=atol={KERNEL_RTOL}), "
+            "S exactly symmetric, two runs bit-equal"
+        )
         results[(C, P)] = (args, err)
 
     args, err = results[(N_CAMERAS, 40_960)]
@@ -270,7 +286,9 @@ def kernel_phase(device, peaks):
     launches_before = FS.schur_s_rhs.launches
     ms = time_ms(lambda: FS.schur_s_rhs(*args))
     plain_ms = time_ms(lambda: FS.schur_s_rhs_plain(*args))
+    passes = device_ms_by_kernel(lambda: FS.schur_s_rhs(*args))
     FS.schur_s_rhs.launches = launches_before  # timing launches are not the main path's
+    log(f"kernel schur_s_rhs C={C} P={P}: device time by pass (torch.profiler, per call) {json.dumps(passes)}")
     # yardstick: the (72, 3P) x (3P, 72) product that carries most of the
     # FLOPs, one torch.matmul (no single PyTorch call computes the function)
     A = torch.randn(n_cp, 3 * P, device=device)
@@ -291,9 +309,10 @@ def kernel_phase(device, peaks):
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
+        "device_ms_by_pass": {name: rec["ms"] for name, rec in passes.items()},
     }
     log(
-        f"kernel schur_s_rhs C={C} P={P}: {ms:.4f} ms (plain {plain_ms:.4f} ms, one (72,3P)x(3P,72) "
+        f"kernel schur_s_rhs C={C} P={P}: {ms:.4f} ms by CUDA events around the wrapper (plain {plain_ms:.4f} ms, one (72,3P)x(3P,72) "
         f"torch.matmul {library_ms:.4f} ms); needs {bytes_ / 1e6:.1f} MB and {flops / 1e9:.3f} GFLOP -> "
         f"bound {entry['bound_ms'] * 1e3:.1f} us by {entry['bound_by']}"
     )
@@ -356,11 +375,13 @@ def detect_kernel_phase(device, peaks, frames):
     from caliscope_tpu_torch.detect import ccl as CCL
     from caliscope_tpu_torch.detect import cuda_kernels as CK
     from caliscope_tpu_torch.detect import kernels as DK
+    from caliscope_tpu_torch.kernel_times import device_ms_by_kernel
     from caliscope_tpu_torch.trackers.charuco_tracker import _RUN_CHUNK
 
     rng = np.random.default_rng(5)
     on_card = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
-    counts = (CCL.connected_components.launches, CK.corner_response.launches, CK.extract_windows.launches)
+    counts = (CCL.connected_components.launches, CCL.connected_components.resident_launches,
+              CK.corner_response.launches, CK.extract_windows.launches)
     imgs = on_card(frames[:_RUN_CHUNK]).to(torch.float32)  # one dispatch's frames
     B, H, W = imgs.shape
 
@@ -373,24 +394,90 @@ def detect_kernel_phase(device, peaks, frames):
     for shape, p in (((2, 70, 130), 0.55), ((1, 40, 136), 0.35)):
         cases.append((f"random {shape}", on_card(rng.uniform(size=shape) < p), (0, 1, 4, 12)))
     cases.append(("threshold crop (2,70,130)", board_mask[:2, 300:370, 500:630].contiguous(), (1, 4, 12)))
-    # taller than the 1,760 rows of a column strip the kernel stages at once
-    # (2 and 3 segments), dense, with a hook down column 0, along the last
-    # row and up column 2, whose minimum has to climb across the segments
-    for shape, p in (((1, 2160, 96), 0.9), ((2, 3601, 33), 0.97)):
-        tall = rng.uniform(size=shape) < p
-        tall[:, :, :4] = False
-        tall[:, :, 0] = tall[:, -1, :3] = tall[:, 5:, 2] = True
-        cases.append((f"tall random {shape}", on_card(tall), (1, 4, 12)))
+
+    def hooked(shape, p):
+        """Dense, with a hook down column 0, along the last row and up column
+        2, whose minimum arrives at the bottom of column 2 in round 2 and has
+        to climb it (upwards through bands that are foreground throughout,
+        as label 0 runs down column 0 through them); column 6 is cut once,
+        column 9 and one row are foreground throughout."""
+        m = rng.uniform(size=shape) < p
+        m[:, :, :12] = False
+        m[:, :, 0] = m[:, -1, :3] = m[:, 5:, 2] = True
+        m[:, :, 6] = m[:, :, 9] = True
+        m[:, shape[1] // 2, 6] = False
+        m[:, shape[1] // 3, 20:] = True
+        return on_card(m)
+
+    # the resident path at every cluster size, with trailing blocks short
+    # (226 rows in 16 x 15) and empty (225 rows), a width that is no multiple
+    # of 4, and bands of 901 rows
+    for shape, p in (((2, 45, 1280), 0.5), ((1, 90, 1280), 0.6), ((1, 180, 1270), 0.45), ((1, 224, 2048), 0.5),
+                     ((2, 225, 2048), 0.6), ((1, 226, 2047), 0.9), ((2, 720, 1280), 0.9), ((2, 3601, 33), 0.97)):
+        cases.append((f"hooked {shape}", hooked(shape, p), (1, 4, 12)))
+    # frames that fit no cluster: wider than the resident path takes, and
+    # taller than the rows of a column strip the two-launch kernel stages at
+    # once (two segments of a strip, and three)
+    for shape, p in (((1, 2160, 448), 0.9), ((1, 2200, 440), 0.97), ((1, 40, 2100), 0.5)):
+        cases.append((f"hooked {shape}", hooked(shape, p), (1, 4, 12)))
+
+    def chained(shape, p):
+        """Dense, with no long run of background (see `plain_is_exact`).
+        Column 9 is foreground throughout and column 15 from row 5 on, so
+        labels of the top rows run down through every segment in round 1;
+        the last row is foreground too and takes column 9's label in round
+        2, which then climbs column 15 and every run that ends at the bottom
+        up through the segments; column 6 is cut once."""
+        m = rng.uniform(size=shape) < p
+        m[:, :, 9] = m[:, 5:, 15] = m[:, -1, :] = m[:, :, 6] = True
+        m[:, shape[1] // 2, 6] = False
+        return on_card(m)
+
+    cases.append(("chained (1, 3601, 300)", chained((1, 3601, 300), 0.97), (1, 4, 12)))
+
+    def plain_is_exact(mask):
+        """Whether the plain version's int32 offsets hold on this mask: it
+        shifts a label by (segments before it in its line) * (H * W + 1), and
+        every pixel that is not joined to the one before it starts a
+        segment, a background pixel too."""
+        starts_row = (~(mask[:, :, 1:] & mask[:, :, :-1])).sum(2).max()
+        starts_col = (~(mask[:, 1:, :] & mask[:, :-1, :])).sum(1).max()
+        return (int(max(starts_row, starts_col)) + 2) * (mask.shape[1] * mask.shape[2] + 1) < 2**31
+
+    paths = set()
     for what, mask, iters in cases:
+        if not plain_is_exact(mask):
+            raise AssertionError(f"ccl {what}: the plain version's int32 offsets overflow on this mask")
+        plan = CCL.resident_plan(*mask.shape[1:])
+        if plan is None:
+            segments = -(-mask.shape[1] // CCL.MAX_SEGMENT_ROWS)
+            path = f"two launches a round, column strips in {segments} segment{'s' * (segments > 1)}"
+            paths.add(("segments", min(segments, 3)))
+        else:
+            path = f"resident, {plan[0]} blocks x {plan[1]} rows"
+            paths.add(plan[0])
         for n_iters in iters:
+            before = (CCL.connected_components.launches, CCL.connected_components.resident_launches)
             got = CCL.connected_components(mask, n_iters)
             want = CCL.connected_components_plain(mask, n_iters)
             torch.cuda.synchronize()
+            took = (CCL.connected_components.launches - before[0], CCL.connected_components.resident_launches - before[1])
+            if took != (1, int(plan is not None)):
+                raise AssertionError(f"ccl {what}: counted {took} (launches, resident) for the plan {plan}")
             if got.dtype != torch.int32 or not torch.equal(got, want):
                 raise AssertionError(
-                    f"ccl {what} {tuple(mask.shape)} n_iters={n_iters}: {int((got != want).sum())} labels differ from the plain version"
+                    f"ccl {what} {tuple(mask.shape)} n_iters={n_iters} ({path}): {int((got != want).sum())} labels differ from the plain version"
                 )
-        log(f"kernel ccl {what} {tuple(mask.shape)} n_iters={list(iters)}: labels equal the plain version's")
+        log(f"kernel ccl {what} {tuple(mask.shape)} n_iters={list(iters)} [{path}]: labels equal the plain version's")
+    if paths != {("segments", 1), ("segments", 2), ("segments", 3), *CCL.CLUSTER_SIZES}:
+        raise AssertionError(f"ccl: the cases took the paths {paths}, not one, two and more segments and every cluster size")
+    plan = CCL.resident_plan(H, W)
+    log(
+        f"kernel ccl: a {H}x{W} frame takes a cluster of {plan[0]} blocks x {plan[1]} rows, {CCL.resident_bytes(plan[1], W)} bytes of "
+        f"shared memory a block; cudaOccupancyMaxActiveClusters = {CCL.resident_max_active_clusters(H, W)}"
+    )
+    ccl_passes = device_ms_by_kernel(lambda: CCL.connected_components(board_mask, 4))
+    log(f"kernel ccl ({B},{H},{W}) n_iters=4: device time by GPU kernel (torch.profiler, per call) {json.dumps(ccl_passes)}")
     ccl_entry = bound_entry(
         "ccl", "caliscope_tpu_torch/csrc/ccl.cu", "caliscope_tpu/detect/pallas_ccl.py:99", 0.0,
         time_ms(lambda: CCL.connected_components(board_mask, 4)),
@@ -401,6 +488,7 @@ def detect_kernel_phase(device, peaks, frames):
         # by two orders of magnitude either way)
         B * H * W * 5, B * H * W * 2 * 4, peaks, f"({B},{H},{W}) bool, n_iters=4",
     )
+    ccl_entry["device_ms_by_pass"] = {name: rec["ms"] for name, rec in ccl_passes.items()}
 
     # ---- kernel 3: ring response
     err = 0.0
@@ -479,7 +567,8 @@ def detect_kernel_phase(device, peaks, frames):
     win_entry["corner_windows_caller"] = {k: corner_caller[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
     # comparing and timing launches are not a path's
-    CCL.connected_components.launches, CK.corner_response.launches, CK.extract_windows.launches = counts
+    (CCL.connected_components.launches, CCL.connected_components.resident_launches,
+     CK.corner_response.launches, CK.extract_windows.launches) = counts
     return [ccl_entry, resp_entry, win_entry]
 
 
@@ -514,6 +603,7 @@ def detect_slice_phase(device, ch, frames, truths, smi_line):
 
     # the main path's run: counts from 0 just before, read just after
     CCL.connected_components.launches = CK.corner_response.launches = CK.extract_windows.launches = 0
+    CCL.connected_components.resident_launches = 0
     before = tracker.dispatches
     sync(device)
     t0 = time.perf_counter()
@@ -521,6 +611,7 @@ def detect_slice_phase(device, ch, frames, truths, smi_line):
     sync(device)
     warm_s = time.perf_counter() - t0
     launches = (CCL.connected_components.launches, CK.corner_response.launches, CK.extract_windows.launches)
+    resident = CCL.connected_components.resident_launches
     dispatches = tracker.dispatches - before
 
     n_found = sum(len(p) for p in packets)
@@ -535,6 +626,8 @@ def detect_slice_phase(device, ch, frames, truths, smi_line):
     _same_packets(packets, first, 0.0, "second call against the first")
     if launches != (dispatches, dispatches, 2 * dispatches) or dispatches < -(-len(frames) // _RUN_CHUNK):
         raise AssertionError(f"detection: launches (ccl, response, windows) {launches} for {dispatches} dispatches")
+    if resident != dispatches:
+        raise AssertionError(f"detection: {resident} of {dispatches} labelings of 720p frames went through the resident kernel")
     cpu = CharucoTracker(ch, device="cpu").get_points_batch(frames[:2], 0)
     _same_packets(packets[:2], cpu, GPU_VS_CPU_ATOL_PX, "the card against the port on the CPU")
     gap = max(float(np.abs(g.img_loc - w.img_loc).max()) for g, w in zip(packets[:2], cpu))
@@ -542,7 +635,7 @@ def detect_slice_phase(device, ch, frames, truths, smi_line):
         f"detection slice: {len(frames)} frames {frames.shape[2]}x{frames.shape[1]} on {device}: {n_found} of "
         f"{len(frames) * ch.n_corners} corners, error max {errs.max():.4f} px mean {errs.mean():.4f} px; first call "
         f"{first_s:.3f} s, warm call {warm_s:.4f} s = {len(frames) / warm_s:.1f} frames/s [{smi_line}]; {dispatches} "
-        f"dispatches, launches ccl {launches[0]} response {launches[1]} windows {launches[2]}; the card's packets "
+        f"dispatches, launches ccl {launches[0]} (resident {resident}) response {launches[1]} windows {launches[2]}; the card's packets "
         f"within {gap:.2e} px of the port's CPU packets on 2 frames"
     )
     times = []
@@ -556,6 +649,7 @@ def detect_slice_phase(device, ch, frames, truths, smi_line):
     prof = profile_call(device, lambda: tracker.get_points_batch(frames, 0), top=12)
     log("detection profile (one warm call) " + (json.dumps(prof) if prof else "not measured (the profiler recorded no device time)"))
     CCL.connected_components.launches, CK.corner_response.launches, CK.extract_windows.launches = launches
+    CCL.connected_components.resident_launches = resident
     return launches, dispatches
 
 

@@ -39,16 +39,27 @@ def _need_cuda():
 # ---------------------------------------------------------------------------
 
 MASK_CASES = {"aligned": ((2, 64, 128), 0.4), "ragged": ((1, 70, 130), 0.55), "wide": ((2, 48, 256), 0.3), "w136": ((1, 40, 136), 0.35)}
-# taller than the 1,760 rows of a column strip that the CUDA kernel stages at
-# once: two and three segments, dense enough for runs that cross them
-TALL_MASK_CASES = {"rows2160": ((1, 2160, 40), 0.9), "rows3601": ((2, 3601, 33), 0.97)}
+# tall and dense, with runs thousands of rows long. The first two are narrow
+# enough to fit a cluster (resident path on the card, bands of up to 901
+# rows). The last two fit none and are taller than the 1,760 rows of a column
+# strip that the two-launch kernel stages at once: two segments and three
+TALL_MASK_CASES = {
+    "rows2160": ((1, 2160, 40), 0.9), "rows3601": ((2, 3601, 33), 0.97),
+    "rows2160_two_segments": ((1, 2160, 448), 0.9), "rows3601_three_segments": ((1, 3601, 300), 0.97),
+}
 
 
 def _tall_mask(rng, case):
     """Dense, with a hook down column 0, along the last row and up column
-    2: from the second round on the hook's minimum climbs column 2."""
+    2: from the second round on the hook's minimum climbs column 2. Three
+    segments get columns that are foreground throughout instead: the hook's
+    background column would overflow the plain version's int32 offsets
+    there (a background pixel counts as a segment of its line)."""
     shape, p = TALL_MASK_CASES[case]
     m = rng.uniform(size=shape) < p
+    if case == "rows3601_three_segments":
+        m[:, :, 0] = m[:, -1, :] = m[:, 5:, 2] = True
+        return m
     m[:, :, :4] = False
     m[:, :, 0] = m[:, -1, :3] = m[:, 5:, 2] = True
     return m

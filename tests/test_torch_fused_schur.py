@@ -13,6 +13,10 @@ version is pinned to:
       as tests/test_pallas_kernels.py patches it), float32 at C=8, P=1024,
       with that test's 1e-4 tolerance;
   (c) bundle._pminor_hpp_inv, to 1e-12 in float64.
+The CUDA kernel computes only S's upper triangle and mirrors it; the plain
+version's S is symmetric to roundoff (1e-12 relative to the entry's scale in
+float64, 1e-5 in float32: two summation orders of the same products), so the
+mirrored S stays within the kernel's rtol = atol = 1e-3 of it.
 """
 
 from __future__ import annotations
@@ -43,16 +47,45 @@ def _t(arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
-@pytest.mark.parametrize("C,P", [(3, 256), (8, 300)], ids=["tiled", "ragged"])
+@pytest.mark.parametrize("C,P", [(3, 256), (8, 300), (5, 1000), (1, 7)], ids=["tiled", "ragged", "five_cameras", "one_camera"])
 def test_plain_matches_reference_f64(rng, C, P):
-    blocks = _blocks(rng, C, P, np.float64, pin=7)
+    pin = min(7, P - 1)
+    blocks = _blocks(rng, C, P, np.float64, pin=pin)
     got = FS.schur_s_rhs_plain(*_t(blocks), LAM)
     want = PS.schur_s_rhs_reference(*(jnp.asarray(a) for a in blocks), LAM)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=1e-10, atol=1e-10)
     np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), rtol=1e-10, atol=1e-10)
     # the pinned point's block is the damped identity's inverse
-    np.testing.assert_allclose(got[2][:, :, 7].numpy(), np.eye(3) / (1 + LAM + 1e-12), rtol=1e-12)
+    np.testing.assert_allclose(got[2][:, :, pin].numpy(), np.eye(3) / (1 + LAM + 1e-12), rtol=1e-12)
+
+
+@pytest.mark.parametrize("C,lam", [(5, LAM), (1, 1.0)], ids=["five_cameras", "one_camera"])
+def test_plain_matches_interpreted_pallas_kernel_at_camera_counts_off_the_tile(rng, monkeypatch, C, lam):
+    """9C = 45 and 9 are no multiples of the CUDA kernel's 8-row tiles. With
+    one camera every point block has rank 2, so its damped inverse is of
+    order 1 / lam and magnifies float32 roundoff by as much: that case runs
+    at lam = 1, where the comparison says something about the arithmetic."""
+    from jax.experimental import pallas as pl
+
+    orig = pl.pallas_call
+    monkeypatch.setattr(pl, "pallas_call", lambda *a, **k: orig(*a, **{**k, "interpret": True}))
+    blocks = _blocks(rng, C=C, P=1024, pin=7)
+    want = PS._schur_s_rhs_impl(*(jnp.asarray(a) for a in blocks), lam)
+    got = FS.schur_s_rhs(*_t(blocks), lam)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12), (np.float32, 1e-5)], ids=["float64", "float32"])
+@pytest.mark.parametrize("C,P", [(8, 2048), (5, 1000)], ids=["eight_cameras", "five_cameras"])
+def test_plain_S_is_symmetric_to_roundoff(rng, dtype, tol, C, P):
+    blocks = _blocks(rng, C, P, dtype, pin=7)
+    S = FS.schur_s_rhs_plain(*_t(blocks), LAM)[0].numpy()
+    scale = np.sqrt(np.outer(np.diag(S), np.diag(S)))  # |S_ij| <= sqrt(S_ii S_jj): S is positive semi-definite
+    assert (np.diag(S) > 0).all()
+    assert np.abs(S - S.T).max() > 0 or dtype == np.float64  # not symmetric by construction
+    assert (np.abs(S - S.T) <= tol * scale).all()
 
 
 def test_plain_matches_interpreted_pallas_kernel(rng, monkeypatch):
@@ -154,3 +187,23 @@ def test_compiled_kernel_matches_plain_on_cuda(rng):
         assert FS.schur_s_rhs.launches == before + 1
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,P", [(8, 40_960), (5, 1000), (1, 7), (9, 130), (13, 2049), (FS.MAX_CAMERAS, 4099)])
+def test_compiled_kernel_is_symmetric_repeatable_and_takes_any_camera_count(rng, C, P):
+    """Every tile plan: 9C off the 8-row tiles, fewer points than a tile, a
+    point count off the 16-byte copies, one to eight slices a tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs this check on the card")
+    blocks = [b.cuda() for b in _t(_blocks(rng, C, P, pin=min(7, P - 1)))]
+    # one camera: rank-2 point blocks, inverses of order 1 / lam; see above
+    lam = torch.tensor([1.0 if C == 1 else LAM], dtype=torch.float32, device="cuda")
+    got = FS.schur_s_rhs(*blocks, lam)
+    again = FS.schur_s_rhs(*blocks, lam)
+    want = FS.schur_s_rhs_plain(*blocks, lam)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[0].T)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3)
