@@ -111,8 +111,6 @@ def resident_max_active_clusters(H: int, W: int) -> int:
 def _check_inputs(mask, n_iters):
     if not isinstance(mask, torch.Tensor):
         raise TypeError(f"connected_components: mask must be a torch.Tensor, got {type(mask).__name__}")
-    if mask.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"connected_components: mask must lie on the CPU or a CUDA device, not {mask.device}")
     if mask.dtype != torch.bool:
         raise TypeError(f"connected_components: mask must be bool, got {mask.dtype}")
     if mask.ndim != 3 or min(mask.shape) < 1:
@@ -124,9 +122,11 @@ def _check_inputs(mask, n_iters):
     B, H, W = mask.shape
     if W > MAX_WIDTH:
         raise ValueError(f"connected_components: the kernel takes frames up to {MAX_WIDTH} columns, got {H}x{W}")
-    # the plain version's int32 offset trick, which bounds both versions
-    if (max(H, W) // 2 + 1) * (H * W + 1) >= 2**31:
-        raise ValueError(f"connected_components: frame {H}x{W} overflows the int32 label arithmetic")
+    # int32 labels: H * W pixel indices and the background value H * W
+    if H * W + 1 >= 2**31:
+        raise ValueError(f"connected_components: frame {H}x{W} has too many pixels for int32 labels")
+    if mask.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"connected_components: mask must lie on the CPU or a CUDA device, not {mask.device}")
     return B, H, W
 
 

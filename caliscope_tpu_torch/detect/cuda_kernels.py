@@ -44,11 +44,19 @@ def _library(name: str):
         lib = _cuda_build.load(name)
         p, i = ctypes.c_void_p, ctypes.c_int
         if name == "corner_response":
-            _cuda_build.bind(lib, name, [p, p, i, i, i, p, p, i, p])
+            _cuda_build.bind(lib, name, [p, p, i, i, i, i, p])
             lib.corner_response_n_taps.argtypes = []
             lib.corner_response_n_taps.restype = i
+            lib.corner_response_check_taps.argtypes = [p, p]
+            lib.corner_response_check_taps.restype = i
             if lib.corner_response_n_taps() != N_TAPS:
                 raise RuntimeError("corner_response library and wrapper disagree on the ring size")
+            # the kernel's taps are compile-time constants: once, here, they
+            # must be ring_taps() to the bit
+            offsets, weights = ring_taps()
+            bad = lib.corner_response_check_taps(offsets.ctypes.data, weights.ctypes.data)
+            if bad:
+                raise RuntimeError(f"corner_response library and wrapper disagree on tap {bad - 1}")
         else:
             _cuda_build.bind(lib, name, [p, p, p, p, i, i, i, i, i, p])
         _libs[name] = lib
@@ -129,13 +137,11 @@ def corner_response(images):
     if images.device.type == "cpu":
         return corner_response_plain(images)
     lib = _library("corner_response")
-    offsets, weights = ring_taps()
     B, H, W = images.shape
     with torch.cuda.device(images.device):
         out = torch.empty_like(images)
         err = lib.corner_response_launch(
-            images.data_ptr(), out.data_ptr(), B, H, W, offsets.ctypes.data, weights.ctypes.data, PAD,
-            torch.cuda.current_stream(images.device).cuda_stream,
+            images.data_ptr(), out.data_ptr(), B, H, W, PAD, torch.cuda.current_stream(images.device).cuda_stream
         )
     _cuda_build.check_launch(lib, "corner_response", err)
     corner_response.launches += 1

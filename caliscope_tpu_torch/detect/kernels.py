@@ -82,27 +82,25 @@ def _segmented_min_scan(values, connected, reverse: bool = False):
     Two scalar scans (cumsum of segment starts + cummin of offset values).
     The offset trick: v' = v - seg_id * M with M > max(v); elements of
     earlier segments carry a strictly larger v', so a plain running min
-    never leaks across a boundary. seg_id counts segment starts within the
-    row, so the worst case (alternating pixels, W/2 segments) keeps
-    |v'| < W/2 * M, within int32 for the frame sizes this pipeline handles
-    (checked below).
+    never leaks across a boundary. Every element that does not join the one
+    before it starts a segment (a background pixel too), so seg_id reaches
+    n and |v'| reaches n * M, beyond int32 on large frames (1080p): the
+    offsets are taken in int64, which holds them for any int32 label plane,
+    and the result is int32 again.
     """
     n = values.shape[-1]
     rows = values.shape[-2]
     M = n * rows + 1  # > any linear pixel index
-    # worst-case |v'| = (n/2) * M must fit int32
-    assert (n // 2 + 1) * (n * rows + 1) < 2**31, "frame too large for i32 offset trick"
     if reverse:
         # connected[i] gates the pair (i, i+1); in flipped coordinates that
         # pair becomes (j-1, j) at j = n-1-i, a plain flip of the flag array
         values = torch.flip(values, dims=(-1,))
         connected = torch.flip(connected, dims=(-1,)).clone()
         connected[..., 0] = False
-    starts = (~connected).to(torch.int32)
-    seg_id = torch.cumsum(starts, dim=-1, dtype=torch.int32)
-    shifted = values - seg_id * M
+    seg_id = torch.cumsum(~connected, dim=-1, dtype=torch.int64)
+    shifted = values.to(torch.int64) - seg_id * M
     run = torch.cummin(shifted, dim=-1).values
-    out = run + seg_id * M
+    out = (run + seg_id * M).to(torch.int32)
     if reverse:
         out = torch.flip(out, dims=(-1,))
     return out

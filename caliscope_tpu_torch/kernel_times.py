@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the two largest hand-written kernels of a checkout of the port, GPU
-kernel by GPU kernel, at the main paths' shapes.
+"""Time the hand-written kernels of a checkout of the port, GPU kernel by GPU
+kernel, at the main paths' shapes.
 
     python3 caliscope_tpu_torch/kernel_times.py [--root CHECKOUT] [--label TEXT]
 
@@ -10,12 +10,17 @@ can be timed in turns on one card: unpack the other commit somewhere
 (`git archive`) and give its directory. Needs a CUDA device and nvcc; the
 kernels are built at first use, as always.
 
-For `schur_s_rhs` (C = 8, P = 40,960, float32) and `connected_components`
-((8, 720, 1280) bool at 45 % foreground, 4 rounds) it prints one JSON line
-with the wrapper's time per call by CUDA events (median of 5 rounds of 20
-warm calls) and, from torch.profiler over 10 warm calls, the device time per
-call of every GPU kernel the wrapper launched, by kernel name; and what
-ptxas reported for the kernels this process built (registers, spills).
+For `schur_s_rhs` (C = 8, P = 40,960, float32), `connected_components`
+((8, 720, 1280) bool at 45 % foreground, 4 rounds), `corner_response`
+((8, 720, 1280) float32) and `extract_windows` at both callers' shapes (the
+int32 patch atlas (8, 1356, 1280), K = 64, win = 96; the edge-padded float32
+frames (8, 748, 1308), K = 256, win = 28) it prints one JSON line with the
+wrapper's time per call by CUDA events (median of 5 rounds of 20 warm
+calls), the host's time to issue a call (`host_ms`: perf_counter over 50
+calls not waited for) and, from torch.profiler over 10 warm calls, the
+device time per launch of every GPU kernel the wrapper launched, by kernel
+name, with its launches per call (1 for each kernel here); and what ptxas
+reported for the kernels this process built (registers, spills).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 
@@ -45,25 +51,48 @@ def event_ms(fn, reps=20, rounds=5):
     return statistics.median(samples)
 
 
-def device_ms_by_kernel(fn, reps=10):
-    """Device ms per call of `fn`, by GPU kernel name, and launches per call."""
+def host_ms(fn, reps=50):
+    """The host's time to issue one call of `fn`: perf_counter over `reps`
+    calls with no synchronisation between them (too few to fill the launch
+    queue, so the host never waits for the device)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
+
+
+def device_ms_by_kernel(fn, reps=10, tries=3):
+    """Device ms per launch of every GPU kernel `fn` launches, by kernel
+    name: the mean over the launches torch.profiler recorded in `reps`
+    calls, with those launches per call. On the H100 the profiler now and
+    then drops a short kernel's records (9 of 10, or none, recorded), so the
+    mean is over what it kept, and a run that kept none is repeated."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.replace("(anonymous namespace)::", "").split("(")[0]  # no namespace, no arguments
-            rec = out.setdefault(name, {"ms": 0.0, "launches": 0.0})
-            rec["ms"] += e.time_range.elapsed_us() / 1e3 / reps
-            rec["launches"] += 1 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                name = e.name.replace("(anonymous namespace)::", "").split("(")[0]  # no namespace, no arguments
+                us.setdefault(name, []).append(e.time_range.elapsed_us())
+        out = {name: {"ms": sum(t) / len(t) / 1e3, "launches": len(t) / reps} for name, t in us.items()}
+        if out:
+            break
     return out
 
 
@@ -80,6 +109,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(args.root).resolve()))
     from caliscope_tpu_torch.detect import ccl as CCL
+    from caliscope_tpu_torch.detect import cuda_kernels as CK
     from caliscope_tpu_torch.solvers import fused_schur as FS
 
     smi = subprocess.run(
@@ -96,12 +126,24 @@ def main() -> int:
         )
     ] + [torch.tensor([1e-3], dtype=torch.float32, device=dev)]
     mask = torch.from_numpy(rng.uniform(size=(8, 720, 1280)) < 0.45).to(dev)
+    frames = torch.from_numpy(rng.uniform(0, 255, size=(8, 720, 1280)).astype(np.float32)).to(dev)
+
+    def window_args(src, K, win):
+        B, Hp, Wp = src.shape
+        seeds = [rng.integers(0, n - win + 1, size=(B, K)).astype(np.int32) for n in (Hp, Wp)]
+        return (src, *(torch.from_numpy(a).to(dev) for a in seeds), win)
+
+    atlas = window_args(torch.from_numpy(rng.integers(0, 2**31 - 1, size=(8, 1356, 1280)).astype(np.int32)).to(dev), 64, 96)
+    padded = window_args(torch.from_numpy(rng.uniform(0, 255, size=(8, 748, 1308)).astype(np.float32)).to(dev), 256, 28)
     out = {"label": args.label, "package": str(Path(FS.__file__).resolve().parents[1]), "card": smi}
     for name, fn in (
         ("schur_s_rhs", lambda: FS.schur_s_rhs(*blocks)),
         ("connected_components", lambda: CCL.connected_components(mask, 4)),
+        ("corner_response", lambda: CK.corner_response(frames)),
+        ("extract_windows_atlas", lambda: CK.extract_windows(*atlas)),
+        ("extract_windows_corners", lambda: CK.extract_windows(*padded)),
     ):
-        out[name] = {"ms": event_ms(fn), "gpu_kernels": device_ms_by_kernel(fn)}
+        out[name] = {"ms": event_ms(fn), "host_ms": host_ms(fn), "gpu_kernels": device_ms_by_kernel(fn)}
     from caliscope_tpu_torch import _cuda_build
 
     out["ptxas"] = {

@@ -15,9 +15,10 @@ on any failed check. Phases:
    events, median of warm repetitions), a one-call PyTorch yardstick where
    one call computes the function, and the least time the card could take
    for the same work. The Schur kernel's S must be exactly symmetric and
-   the same bits on a second run; the labeling cases say which of its two
-   paths each took and must cover both and every cluster size; both report
-   their device time by GPU kernel under torch.profiler.
+   the same bits on a second run; kernels 2-4 must equal their plain
+   versions bit for bit (torch.equal); the labeling cases say which of its
+   two paths each took and must cover both and every cluster size; every
+   kernel reports its device time by GPU kernel under torch.profiler.
 4. Detection slice: 16 rendered 1280x720 views of a 5x7 ChArUco board (the
    recipe of bench.py's detection workload, warped in numpy) through
    CharucoTracker.get_points_batch on the card — corners found, accuracy
@@ -78,20 +79,18 @@ MAX_CENTER_ERROR_M = 0.005
 DETECT_BATCH = 16
 DETECT_WH = (1280, 720)
 DETECT_BASE_QUAD = ((200, 90), (1080, 120), (1040, 620), (240, 600))
-# Ring response, kernel vs plain version: both do the same single IEEE
-# float32 operations in the same order, so they are expected to be equal;
-# the tolerance is the reference suite's for its kernel against its twin.
-RESPONSE_RTOL, RESPONSE_ATOL = 1e-4, 1e-3
 MIN_FOUND_FRACTION = 0.9
 MAX_CORNER_ERROR_PX, MAX_MEAN_CORNER_ERROR_PX = 0.6, 0.3
 # the card's packets against the port's CPU packets on the same frames
 # (float sums in another order; the CPU tests hold 0.02 px against JAX)
 GPU_VS_CPU_ATOL_PX = 0.05
 
-# Published peaks (bytes/s, non-tensor FP32 operations/s) of the card the
-# bounds are computed for, keyed by torch.cuda.get_device_name(): the H100
-# SXM's data-sheet rates at its full 700 W power limit.
-PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12)}
+# Peaks of the card the bounds are computed for, keyed by
+# torch.cuda.get_device_name(): bytes/s and non-tensor FP32 operations/s
+# (the H100 SXM's data-sheet rates at its full 700 W power limit; an FMA
+# counts as two operations), and FP32 instructions/s where no FMA may be
+# formed (132 SMs x 128 lanes x 1.98 GHz: one operation a lane a clock).
+PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12, 33.5e12)}
 
 
 def log(msg: str) -> None:
@@ -288,14 +287,14 @@ def kernel_phase(device, peaks):
     plain_ms = time_ms(lambda: FS.schur_s_rhs_plain(*args))
     passes = device_ms_by_kernel(lambda: FS.schur_s_rhs(*args))
     FS.schur_s_rhs.launches = launches_before  # timing launches are not the main path's
-    log(f"kernel schur_s_rhs C={C} P={P}: device time by pass (torch.profiler, per call) {json.dumps(passes)}")
+    log(f"kernel schur_s_rhs C={C} P={P}: device time by pass (torch.profiler, ms per launch, launches per call) {json.dumps(passes)}")
     # yardstick: the (72, 3P) x (3P, 72) product that carries most of the
     # FLOPs, one torch.matmul (no single PyTorch call computes the function)
     A = torch.randn(n_cp, 3 * P, device=device)
     B = torch.randn(3 * P, n_cp, device=device)
     library_ms = time_ms(lambda: torch.matmul(A, B))
     bytes_, flops = schur_work(C, P)
-    mem_rate, f32_rate = peaks
+    mem_rate, f32_rate, _ = peaks
     t_bytes, t_ops = bytes_ / mem_rate * 1e3, flops / f32_rate * 1e3
     entry = {
         "name": "schur_s_rhs",
@@ -345,10 +344,11 @@ def detect_frames(n=DETECT_BATCH):
     return ch, np.stack(frames), truths
 
 
-def bound_entry(name, source, replaces, err, ms, plain_ms, library_ms, bytes_, ops, peaks, what):
+def bound_entry(name, source, replaces, err, ms, plain_ms, library_ms, bytes_, ops, peaks, what, op_rate=None):
     """A `kernels` entry with the bound computed from this run's bytes and
-    operations, and its arithmetic logged."""
-    mem_rate, f32_rate = peaks
+    operations (at `op_rate`, by default the FP32 peak), and its arithmetic
+    logged."""
+    mem_rate, f32_rate = peaks[0], op_rate or peaks[1]
     t_bytes, t_ops = bytes_ / mem_rate * 1e3, ops / f32_rate * 1e3
     entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": None,
@@ -417,37 +417,14 @@ def detect_kernel_phase(device, peaks, frames):
         cases.append((f"hooked {shape}", hooked(shape, p), (1, 4, 12)))
     # frames that fit no cluster: wider than the resident path takes, and
     # taller than the rows of a column strip the two-launch kernel stages at
-    # once (two segments of a strip, and three)
-    for shape, p in (((1, 2160, 448), 0.9), ((1, 2200, 440), 0.97), ((1, 40, 2100), 0.5)):
+    # once (two segments of a strip, and three); and 1080p, where the plain
+    # version's offsets need more than int32 (it takes them in int64)
+    for shape, p in (((1, 2160, 448), 0.9), ((1, 2200, 440), 0.97), ((1, 40, 2100), 0.5), ((1, 3601, 300), 0.97),
+                     ((2, 1080, 1920), 0.45)):
         cases.append((f"hooked {shape}", hooked(shape, p), (1, 4, 12)))
-
-    def chained(shape, p):
-        """Dense, with no long run of background (see `plain_is_exact`).
-        Column 9 is foreground throughout and column 15 from row 5 on, so
-        labels of the top rows run down through every segment in round 1;
-        the last row is foreground too and takes column 9's label in round
-        2, which then climbs column 15 and every run that ends at the bottom
-        up through the segments; column 6 is cut once."""
-        m = rng.uniform(size=shape) < p
-        m[:, :, 9] = m[:, 5:, 15] = m[:, -1, :] = m[:, :, 6] = True
-        m[:, shape[1] // 2, 6] = False
-        return on_card(m)
-
-    cases.append(("chained (1, 3601, 300)", chained((1, 3601, 300), 0.97), (1, 4, 12)))
-
-    def plain_is_exact(mask):
-        """Whether the plain version's int32 offsets hold on this mask: it
-        shifts a label by (segments before it in its line) * (H * W + 1), and
-        every pixel that is not joined to the one before it starts a
-        segment, a background pixel too."""
-        starts_row = (~(mask[:, :, 1:] & mask[:, :, :-1])).sum(2).max()
-        starts_col = (~(mask[:, 1:, :] & mask[:, :-1, :])).sum(1).max()
-        return (int(max(starts_row, starts_col)) + 2) * (mask.shape[1] * mask.shape[2] + 1) < 2**31
 
     paths = set()
     for what, mask, iters in cases:
-        if not plain_is_exact(mask):
-            raise AssertionError(f"ccl {what}: the plain version's int32 offsets overflow on this mask")
         plan = CCL.resident_plan(*mask.shape[1:])
         if plan is None:
             segments = -(-mask.shape[1] // CCL.MAX_SEGMENT_ROWS)
@@ -477,7 +454,7 @@ def detect_kernel_phase(device, peaks, frames):
         f"shared memory a block; cudaOccupancyMaxActiveClusters = {CCL.resident_max_active_clusters(H, W)}"
     )
     ccl_passes = device_ms_by_kernel(lambda: CCL.connected_components(board_mask, 4))
-    log(f"kernel ccl ({B},{H},{W}) n_iters=4: device time by GPU kernel (torch.profiler, per call) {json.dumps(ccl_passes)}")
+    log(f"kernel ccl ({B},{H},{W}) n_iters=4: device time by GPU kernel (torch.profiler, ms per launch, launches per call) {json.dumps(ccl_passes)}")
     ccl_entry = bound_entry(
         "ccl", "caliscope_tpu_torch/csrc/ccl.cu", "caliscope_tpu/detect/pallas_ccl.py:99", 0.0,
         time_ms(lambda: CCL.connected_components(board_mask, 4)),
@@ -490,40 +467,54 @@ def detect_kernel_phase(device, peaks, frames):
     )
     ccl_entry["device_ms_by_pass"] = {name: rec["ms"] for name, rec in ccl_passes.items()}
 
-    # ---- kernel 3: ring response
-    err = 0.0
-    for what, x in (("frames", imgs), ("random (2,97,131)", on_card(rng.uniform(0, 255, size=(2, 97, 131)).astype(np.float32)))):
+    # ---- kernel 3: ring response. The kernel does the plain version's
+    # single IEEE float32 operations in its order (dropping only terms with
+    # weights of exactly 0 or 1), so the two must be equal: the frames, a
+    # ragged shape, frames smaller than one 128 x 32 tile (and than the
+    # border), and a frame mostly of zeros of either sign
+    zeros = rng.normal(scale=40.0, size=(2, 96, 160)).astype(np.float32)
+    zeros[:, 8:60, 10:90] = 0.0
+    zeros[:, 40:90, 60:150] = -0.0
+    zeros[:, ::5, :] = 0.0
+    for what, x in (("frames", imgs), ("random (2,97,131)", on_card(rng.uniform(0, 255, size=(2, 97, 131)).astype(np.float32))),
+                    ("below one tile (3,20,100)", on_card(rng.uniform(0, 255, size=(3, 20, 100)).astype(np.float32))),
+                    ("below the border (1,12,40)", on_card(rng.uniform(0, 255, size=(1, 12, 40)).astype(np.float32))),
+                    ("zero-heavy (2,96,160)", on_card(zeros))):
         got, want = CK.corner_response(x), CK.corner_response_plain(x)
         torch.cuda.synchronize()
-        diff = float((got - want).abs().max())
-        if not torch.isfinite(got).all() or not torch.allclose(got, want, rtol=RESPONSE_RTOL, atol=RESPONSE_ATOL):
-            raise AssertionError(f"corner_response {what}: max |kernel - plain| {diff:.3e} beyond rtol {RESPONSE_RTOL}, atol {RESPONSE_ATOL}")
-        if what == "frames":
-            err = diff
-        log(f"kernel corner_response {what} {tuple(x.shape)}: max |kernel - plain| {diff:.3e} (rtol {RESPONSE_RTOL}, atol {RESPONSE_ATOL}), max response {float(want.max()):.1f}")
-    # what the function needs per pixel on these taps: a bilinear blend (6
-    # products + 3 sums) for a tap off the pixel grid in both axes, one
-    # product pair and sum for a tap off it in one axis, nothing for a tap on
-    # a whole pixel (weights 1 and 0 to within 1e-6; the kernel blends those
-    # too, to keep the plain version's arithmetic); then 16 differences + 16
-    # sums for sr and dr, 16 sums and a division for the mean, 5 for mr and
-    # the result
+        if not torch.isfinite(got).all() or not torch.equal(got, want):
+            raise AssertionError(f"corner_response {what}: {int((got != want).sum())} responses differ from the plain version's "
+                                 f"(max |diff| {float((got - want).abs().max()):.3e})")
+        log(f"kernel corner_response {what} {tuple(x.shape)}: equal to the plain version (torch.equal), max response {float(want.max()):.1f}")
+    # what the function needs per pixel on these taps, each vertical blend
+    # formed once per column (it serves two neighbouring outputs): a term
+    # with a weight of exactly 0 costs nothing, one of exactly 1 no product;
+    # so a blend of two terms costs 3 (2 products + 1 sum), of one term 1 or
+    # 0; then 16 differences + 16 sums for sr and dr, 16 sums and a product
+    # for the mean, 3 for mr and 3 for the result
     _, tap_weights = CK.ring_taps()
-    off_grid = (tap_weights.reshape(-1, 2, 2).min(axis=2) > 1e-6).sum(axis=1)  # axes to blend, per tap
-    tap_ops = int((off_grid == 2).sum()) * 9 + int((off_grid == 1).sum()) * 3
-    flops_px = tap_ops + 32 + 17 + 5
-    log(
-        f"kernel corner_response: {int((off_grid == 2).sum())} taps off the pixel grid in both axes, {int((off_grid == 1).sum())} "
-        f"in one, {int((off_grid == 0).sum())} on it: {tap_ops} + 54 = {flops_px} operations a pixel"
-    )
-    resp_entry = bound_entry(
-        "corner_response", "caliscope_tpu_torch/csrc/corner_response.cu", "caliscope_tpu/detect/pallas_kernels.py:94", err,
-        time_ms(lambda: CK.corner_response(imgs)), time_ms(lambda: CK.corner_response_plain(imgs), reps=3, rounds=3), None,
-        B * H * W * 8, B * H * W * flops_px, peaks, f"({B},{H},{W}) f32",
-    )
 
-    # ---- kernel 4: windows, at both callers' shapes (seeds: random, every
-    # clip corner, and a few outside the frame, which both versions clamp)
+    def blend_ops(w0, w1):
+        terms = [w for w in (w0, w1) if w != 0.0]
+        return sum(w != 1.0 for w in terms) + len(terms) - 1
+
+    tap_ops = sum(blend_ops(wy0, wy1) + blend_ops(wx0, wx1) for wy0, wy1, wx0, wx1 in tap_weights.tolist())
+    ops_px = tap_ops + 32 + 17 + 6
+    log(f"kernel corner_response: {tap_ops} operations a pixel for the 16 samples, {ops_px} in all, each one FP32 "
+        f"instruction (no FMA may be formed): {peaks[2] / 1e12:.1f} T/s, not the {peaks[1] / 1e12:.0f} TFLOP/s FMA peak")
+    resp_passes = device_ms_by_kernel(lambda: CK.corner_response(imgs))
+    log(f"kernel corner_response ({B},{H},{W}): device time by GPU kernel (torch.profiler, ms per launch, launches per call) {json.dumps(resp_passes)}")
+    resp_entry = bound_entry(
+        "corner_response", "caliscope_tpu_torch/csrc/corner_response.cu", "caliscope_tpu/detect/pallas_kernels.py:94", 0.0,
+        time_ms(lambda: CK.corner_response(imgs)), time_ms(lambda: CK.corner_response_plain(imgs), reps=3, rounds=3), None,
+        B * H * W * 8, B * H * W * ops_px, peaks, f"({B},{H},{W}) f32", op_rate=peaks[2],
+    )
+    resp_entry["device_ms"] = sum(rec["ms"] for rec in resp_passes.values())
+
+    # ---- kernel 4: windows, at both callers' shapes, a ragged frame, and an
+    # odd K whose windows (784 words) leave a block's last pass partial
+    # (seeds: random, every clip corner, and a few outside the frame, which
+    # both versions clamp)
     def seeds(Hp, Wp, K, win):
         yi = rng.integers(0, Hp - win + 1, size=(B, K)).astype(np.int32)
         xi = rng.integers(0, Wp - win + 1, size=(B, K)).astype(np.int32)
@@ -534,7 +525,8 @@ def detect_kernel_phase(device, peaks, frames):
     padded = F.pad(imgs[:, None], (14, 14, 14, 14), mode="replicate")[:, 0].contiguous()  # the subpixel stage's frames
     atlas = on_card(rng.integers(0, 2**31 - 1, size=(B, H + H // 2 + H // 4 + 96, W)).astype(np.int32))  # the patch atlas's shape
     win_results = {}
-    for what, src, K, win in (("corner windows", padded, 256, 28), ("atlas patches", atlas, 64, 96), ("ragged", padded[:2, :97, :131].contiguous(), 8, 28)):
+    for what, src, K, win in (("corner windows", padded, 256, 28), ("atlas patches", atlas, 64, 96), ("ragged", padded[:2, :97, :131].contiguous(), 8, 28),
+                              ("odd K", padded[:3], 37, 28)):
         yi, xi = seeds(src.shape[1], src.shape[2], K, win)
         yi, xi = yi[: src.shape[0]].contiguous(), xi[: src.shape[0]].contiguous()
         got, want = CK.extract_windows(src, yi, xi, win), CK.extract_windows_plain(src, yi, xi, win)
@@ -542,14 +534,17 @@ def detect_kernel_phase(device, peaks, frames):
         if got.dtype != src.dtype or not torch.equal(got, want):
             raise AssertionError(f"extract_windows {what}: windows differ from the plain version's")
         log(f"kernel extract_windows {what} {tuple(src.shape)} {src.dtype} K={K} win={win}: windows equal the plain version's")
-        if what == "ragged":
+        if what in ("ragged", "odd K"):
             continue
         # the one-call yardstick: the advanced-indexing gather on prebuilt indices
         ar = torch.arange(win, device=device)
         bi = torch.arange(src.shape[0], device=device)[:, None, None, None]
         yy = yi.long().clamp(0, src.shape[1] - win)[:, :, None, None] + ar[:, None]
         xx = xi.long().clamp(0, src.shape[2] - win)[:, :, None, None] + ar[None, :]
+        passes = device_ms_by_kernel(lambda: CK.extract_windows(src, yi, xi, win))
+        log(f"kernel extract_windows {what}: device time by GPU kernel (torch.profiler, ms per launch, launches per call) {json.dumps(passes)}")
         win_results[what] = dict(
+            device_ms=sum(rec["ms"] for rec in passes.values()),
             ms=time_ms(lambda: CK.extract_windows(src, yi, xi, win)),
             plain_ms=time_ms(lambda: CK.extract_windows_plain(src, yi, xi, win)),
             library_ms=time_ms(lambda: src[bi, yy, xx]),
@@ -564,7 +559,9 @@ def detect_kernel_phase(device, peaks, frames):
         "extract_windows", win_entry["source"], win_entry["replaces"], 0.0,
         c["ms"], c["plain_ms"], c["library_ms"], c["bytes"], 0, peaks, c["shape"],
     )
-    win_entry["corner_windows_caller"] = {k: corner_caller[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    win_entry["device_ms"] = a["device_ms"]
+    corner_caller["device_ms"] = c["device_ms"]
+    win_entry["corner_windows_caller"] = {k: corner_caller[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
     # comparing and timing launches are not a path's
     (CCL.connected_components.launches, CCL.connected_components.resident_launches,
@@ -908,7 +905,8 @@ def main() -> int:
     if kind not in PEAKS:
         raise RuntimeError(f"chip_smoke: no published peak rates for {kind!r}; add them to PEAKS to compute bounds")
     peaks = PEAKS[kind]
-    log(f"peaks used for bounds: {peaks[0] / 1e12:.2f} TB/s, {peaks[1] / 1e12:.1f} TFLOP/s FP32 (non-tensor)")
+    log(f"peaks used for bounds: {peaks[0] / 1e12:.2f} TB/s, {peaks[1] / 1e12:.1f} TFLOP/s FP32 (non-tensor, FMA = 2), "
+        f"{peaks[2] / 1e12:.1f} T FP32 instructions/s")
 
     t0 = time.perf_counter()
     _cuda_build.build_all()

@@ -6,10 +6,11 @@ runs them; and the wrappers' input checks.
 Here, on the CPU, each wrapper computes its plain version; the CUDA kernels
 themselves are held against those plain versions on the card by
 chip_smoke.py and by the `cuda`-marked tests below, which skip without a
-GPU. Labels and windows must be equal bit for bit; the ring response within
-rtol 1e-4, atol 1e-3 of the interpreted Pallas kernel over the whole frame
-(border included, both zero there) and of the jnp twin on [6:-6, 6:-6]
-(the twin does not mask its border).
+GPU, all three equal to their plain versions. Labels and windows must be
+equal to the interpreted Pallas kernels bit for bit; the ring response
+within rtol 1e-4, atol 1e-3 of the interpreted Pallas kernel over the whole
+frame (border included, both zero there) and of the jnp twin on [6:-6,
+6:-6] (the twin does not mask its border).
 """
 
 from __future__ import annotations
@@ -53,8 +54,10 @@ def _tall_mask(rng, case):
     """Dense, with a hook down column 0, along the last row and up column
     2: from the second round on the hook's minimum climbs column 2. Three
     segments get columns that are foreground throughout instead: the hook's
-    background column would overflow the plain version's int32 offsets
-    there (a background pixel counts as a segment of its line)."""
+    background column would overflow the JAX reference's int32 offsets
+    there (a background pixel counts as a segment of its line), and the CPU
+    test holds these masks to the reference; the cuda-marked test adds the
+    hooked three-segment mask (`_hooked_three_segments`)."""
     shape, p = TALL_MASK_CASES[case]
     m = rng.uniform(size=shape) < p
     if case == "rows3601_three_segments":
@@ -97,10 +100,15 @@ def _bad_ccl(rng):
         "meta_device": ((torch.empty(m.shape, dtype=torch.bool, device="meta"), 4), ValueError),
         "negative_iters": ((m, -1), ValueError),
         "too_wide": ((torch.zeros((1, 8, TC.MAX_WIDTH + 1), dtype=torch.bool), 4), ValueError),
+        # H * W + 1 >= 2**31 pixels: the int32 labels' limit (checked before
+        # the device, so a meta tensor of that shape shows it)
+        "too_many_pixels": ((torch.empty((1, 2**31 // TC.MAX_WIDTH + 1, TC.MAX_WIDTH), dtype=torch.bool, device="meta"), 4), ValueError),
     }
 
 
-@pytest.mark.parametrize("case", ["uint8", "not_a_tensor", "two_dims", "non_contiguous", "meta_device", "negative_iters", "too_wide"])
+@pytest.mark.parametrize(
+    "case", ["uint8", "not_a_tensor", "two_dims", "non_contiguous", "meta_device", "negative_iters", "too_wide", "too_many_pixels"]
+)
 def test_ccl_wrapper_raises_on_what_the_kernel_cannot_take(rng, case):
     args, exc = _bad_ccl(rng)[case]
     with pytest.raises(exc, match="connected_components"):
@@ -238,11 +246,21 @@ def test_response_wrapper_raises_on_what_the_kernel_cannot_take(rng, case):
 # ---------------------------------------------------------------------------
 
 
+def _hooked_three_segments(rng):
+    """(1, 3601, 300) with the hook of `_tall_mask` and its background
+    columns: the plain version is exact on it, the JAX reference is not."""
+    m = rng.uniform(size=(1, 3601, 300)) < 0.97
+    m[:, :, :4] = False
+    m[:, :, 0] = m[:, -1, :3] = m[:, 5:, 2] = True
+    return m
+
+
 @pytest.mark.cuda
 def test_compiled_ccl_matches_plain_on_cuda(rng):
     _need_cuda()
     masks = [rng.uniform(size=shape) < p for shape, p in MASK_CASES.values()]
-    for m in (*masks, *(_tall_mask(rng, case) for case in TALL_MASK_CASES)):
+    tall = [_tall_mask(rng, case) for case in TALL_MASK_CASES] + [_hooked_three_segments(rng), rng.uniform(size=(1, 1080, 1920)) < 0.45]
+    for m in (*masks, *tall):
         m = t(m).cuda()
         for n_iters in (0, 1, 4, 12):
             before = TC.connected_components.launches
@@ -255,13 +273,17 @@ def test_compiled_ccl_matches_plain_on_cuda(rng):
 @pytest.mark.cuda
 def test_compiled_response_matches_plain_on_cuda(rng):
     _need_cuda()
-    for shape in ((2, 96, 128), (2, 97, 131), (1, 10, 40)):
-        imgs = t(rng.uniform(0, 255, size=shape).astype(np.float32)).cuda()
+    zeros = rng.normal(scale=40.0, size=(2, 96, 160)).astype(np.float32)
+    zeros[:, 8:60, 10:90] = 0.0
+    zeros[:, 40:90, 60:150] = -0.0
+    frames = [rng.uniform(0, 255, size=shape).astype(np.float32) for shape in ((2, 96, 128), (2, 97, 131), (1, 10, 40), (3, 20, 100))]
+    for x in (*frames, zeros):
+        imgs = t(x).cuda()
         before = CK.corner_response.launches
         got = CK.corner_response(imgs)
         torch.cuda.synchronize()
         assert CK.corner_response.launches == before + 1
-        torch.testing.assert_close(got, CK.corner_response_plain(imgs), rtol=1e-4, atol=1e-3)
+        assert torch.equal(got, CK.corner_response_plain(imgs))  # the same float32 operations in the same order
 
 
 @pytest.mark.cuda
