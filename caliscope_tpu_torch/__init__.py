@@ -12,8 +12,14 @@ through `trackers.CharucoTracker`, with its labeling, ring-response and
 window-gather kernels (`csrc/ccl.cu`, `csrc/corner_response.cu`,
 `csrc/extract_windows.cu`, bound in `detect/ccl.py` and
 `detect/cuda_kernels.py`).
+The third slice carries the extrinsic calibration pipeline from cameras
+without extrinsics (`pipelines.calibrate_extrinsics`): batched PnP
+(`ops/pnp.py`), RANSAC (`ops/epipolar.py`), the pose network
+(`solvers/pose_network.py`), `CaptureVolume.bootstrap` and anchoring, and
+the synthetic scene engine (`synthetic/`); its BA stages run through the
+Schur kernel.
 
-Devices: every entry point (`CaptureVolume`, `lm_solve`,
+Devices: every entry point (`calibrate_extrinsics`, `CaptureVolume`, `lm_solve`,
 `ImagePoints.triangulate`, `CharucoTracker`, `detect_markers`,
 `detect_x_corners_device`) runs on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device it raises instead of falling back.

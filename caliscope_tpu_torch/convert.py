@@ -14,6 +14,8 @@ Exporting from caliscope_tpu (in a program that has both packages):
     ip = {name: getattr(jax_points, name) for name in IMAGE_POINT_FIELDS}
     wp = {name: getattr(jax_world, name) for name in WORLD_POINT_FIELDS}
     board = dataclasses.asdict(jax_charuco)
+    pairs = {key: {f: getattr(sp, f) for f in STEREO_PAIR_FIELDS}
+             for key, sp in jax_network.pairs.items()}
 
 Detection has no other state: the ArUco dictionary data is a byte-identical
 copy inside the port, and packets are numpy on both sides.
@@ -27,11 +29,13 @@ import numpy as np
 
 from caliscope_tpu_torch.cameras import CameraArray, CameraData
 from caliscope_tpu_torch.observations import ImagePoints, WorldPoints
+from caliscope_tpu_torch.solvers.pose_network import PairedPoseNetwork, StereoPair
 from caliscope_tpu_torch.targets.charuco import Charuco
 
 CAMERA_FIELDS = ("matrix", "distortions", "rotation", "translation", "size", "fisheye")
 IMAGE_POINT_FIELDS = ("sync_index", "cam_id", "object_id", "keypoint_id", "img_xy", "obj_loc", "frame_time")
 WORLD_POINT_FIELDS = ("sync_index", "object_id", "keypoint_id", "xyz", "frame_time")
+STEREO_PAIR_FIELDS = ("primary_cam_id", "secondary_cam_id", "error_score", "rotation", "translation")
 CHARUCO_FIELDS = (
     "rows", "columns", "square_size_m", "aruco_scale", "dictionary", "legacy_pattern", "thickness_m", "inverted",
 )
@@ -79,3 +83,26 @@ def charuco(fields: Mapping[str, Any]) -> Charuco:
     if unknown:
         raise ValueError(f"charuco: unknown fields {sorted(unknown)}")
     return Charuco(**dict(fields))
+
+
+def stereo_pairs(pairs: Mapping[tuple[int, int], Mapping[str, Any]]) -> dict[tuple[int, int], StereoPair]:
+    """{(a, b): {field: value}} with the STEREO_PAIR_FIELDS -> the port's
+    StereoPairs, keyed and ordered as given."""
+    out = {}
+    for key, p in pairs.items():
+        if set(p) != set(STEREO_PAIR_FIELDS):
+            raise ValueError(f"stereo pair {key}: fields {sorted(p)}, expected {sorted(STEREO_PAIR_FIELDS)}")
+        out[(int(key[0]), int(key[1]))] = StereoPair(
+            int(p["primary_cam_id"]),
+            int(p["secondary_cam_id"]),
+            float(p["error_score"]),
+            np.array(p["rotation"], dtype=np.float64).reshape(3, 3),
+            np.array(p["translation"], dtype=np.float64).reshape(3),
+        )
+    return out
+
+
+def pose_network(pairs: Mapping[tuple[int, int], Mapping[str, Any]]) -> PairedPoseNetwork:
+    """A PairedPoseNetwork's pairs (as for stereo_pairs, the bridged graph
+    as the JAX network holds it) -> the port's network with the same graph."""
+    return PairedPoseNetwork(stereo_pairs(pairs))

@@ -4,10 +4,13 @@ Port of caliscope_tpu/ops/lie.py. Same branch-free formulas (where-selects
 with safe denominators, Taylor series at theta -> 0), so the two packages
 agree to roundoff. Convention: x_cam = R @ X + t with world->camera R.
 
-Host bookkeeping (cameras.py: the rvecs written to camera TOML files) uses
-the numpy twins `so3_exp_host` / `so3_log_host`, the JAX package's own
-numpy path op for op, so that files written by the two packages match byte
-for byte.
+Host bookkeeping uses the numpy twins (`*_host`): cameras.py's rvecs
+through `so3_exp_host` / `so3_log_host`, the JAX package's own numpy path
+op for op (so that camera TOML files written by the two packages match
+byte for byte), and the pose network's graph algebra on tiny per-pair
+arrays (solvers/pose_network.py), which the JAX package also runs in
+float64 on the host; the quaternion and angle twins run this module's
+torch ops on float64 CPU tensors.
 """
 
 from __future__ import annotations
@@ -98,6 +101,37 @@ def quat_from_matrix(R):
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
 
 
+def matrix_from_quat(q):
+    """Unit quaternion (...,4) [w,x,y,z] -> rotation matrix (...,3,3)."""
+    q = q / _safe_norm(q, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    rows = [
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def rotation_geodesic_angle(R_a, R_b):
+    """Geodesic angle (radians) between two rotations, batched."""
+    R_rel = R_a @ R_b.transpose(-1, -2)
+    cos = (torch.diagonal(R_rel, dim1=-2, dim2=-1).sum(-1) - 1.0) / 2.0
+    return torch.arccos(torch.clamp(cos, -1.0, 1.0))
+
+
+def quaternion_average(quats, weights=None):
+    """Average rotations by the eigenvector method (Markley et al. 2007):
+    quats (N,4) [w,x,y,z] -> (4,), the principal eigenvector of
+    sum w_i q_i q_i^T with w >= 0 (sign-invariant)."""
+    if weights is None:
+        weights = torch.ones(quats.shape[0], dtype=quats.dtype, device=quats.device)
+    M = torch.einsum("n,ni,nj->ij", weights, quats, quats)
+    _, vecs = torch.linalg.eigh(M)
+    q = vecs[:, -1]
+    return q * torch.where(q[0] < 0, -1.0, 1.0)
+
+
 def so3_log(R):
     """Rotation matrix (...,3,3) -> Rodrigues vector (...,3), through the
     quaternion: rvec = 2 * atan2(|v|, w) * v/|v|."""
@@ -153,8 +187,8 @@ def so3_exp_host(rvec) -> np.ndarray:
     return np.broadcast_to(np.eye(3), K.shape) + a * K + b * (K @ K)
 
 
-def so3_log_host(R) -> np.ndarray:
-    """numpy twin of so3_log for one host rotation matrix (3,3) -> (3,)."""
+def quat_from_matrix_host(R) -> np.ndarray:
+    """numpy twin of quat_from_matrix: (...,3,3) -> (...,4) [w,x,y,z]."""
     R = np.asarray(R, dtype=np.float64)
     m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
     m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
@@ -170,9 +204,43 @@ def so3_log_host(R) -> np.ndarray:
     idx = best[..., None, None].astype(np.int32) * np.ones((1, 4), np.int32)
     q = np.take_along_axis(cands, idx, axis=-2)[..., 0, :]
     q = q / np.sqrt(np.maximum(np.sum(q * q, axis=-1, keepdims=True), _EPS))
-    q = q * np.where(q[..., :1] < 0, -1.0, 1.0)
+    return q * np.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def so3_log_host(R) -> np.ndarray:
+    """numpy twin of so3_log: (...,3,3) -> (...,3)."""
+    q = quat_from_matrix_host(R)
     w, v = q[..., 0], q[..., 1:]
     vnorm = np.sqrt(np.maximum(np.sum(v * v, axis=-1), _EPS))
     theta = 2.0 * np.arctan2(vnorm, w)
     scale = np.where(vnorm < 1e-8, 2.0 / np.maximum(w, _EPS), theta / vnorm)
     return v * scale[..., None]
+
+
+def _on_host(fn, *arrays) -> np.ndarray:
+    """`fn` (a torch op of this module) on numpy arrays, as float64 CPU
+    tensors: the host twins below share the device versions' formulas."""
+    return fn(*(torch.from_numpy(np.asarray(a, dtype=np.float64)) for a in arrays)).numpy()
+
+
+def matrix_from_quat_host(q) -> np.ndarray:
+    """numpy twin of matrix_from_quat: (...,4) -> (...,3,3)."""
+    return _on_host(matrix_from_quat, q)
+
+
+def rotation_geodesic_angle_host(R_a, R_b) -> np.ndarray:
+    """numpy twin of rotation_geodesic_angle."""
+    return _on_host(rotation_geodesic_angle, R_a, R_b)
+
+
+def quaternion_average_host(quats, weights=None) -> np.ndarray:
+    """numpy twin of quaternion_average: (N,4) -> (4,)."""
+    if weights is None:
+        weights = np.ones(len(quats))
+    return _on_host(quaternion_average, quats, weights)
+
+
+def se3_inverse_host(R, t) -> tuple[np.ndarray, np.ndarray]:
+    """numpy twin of se3_inverse."""
+    Rt = np.swapaxes(np.asarray(R), -1, -2)
+    return Rt, -(Rt @ np.asarray(t)[..., None])[..., 0]

@@ -94,6 +94,14 @@ def project_points(X, rvec, tvec, K, dist, fisheye: bool, min_depth: float = 1e-
     return normalized_to_pixels(xd, K)
 
 
+def project_normalized(X, rvec, tvec, min_depth: float = 1e-6):
+    """World points -> undistorted normalized image coords (pinhole, K=I)."""
+    R = so3_exp(rvec)
+    xc = torch.einsum("...ij,...j->...i", R, X) + tvec
+    z = _clamp_depth(xc[..., 2:3], min_depth)
+    return xc[..., :2] / z
+
+
 def _undistort_brown_iter(xd, dist, iters: int):
     """Fixed-point inversion of the Brown model (OpenCV-style iteration)."""
     k1, k2, p1, p2, k3 = (dist[..., i] for i in range(5))

@@ -1,0 +1,17 @@
+"""Synthetic ground-truth scene engine — the test backbone.
+
+Port of caliscope_tpu/synthetic/ (SE3Pose, Trajectory, CalibrationObject,
+CameraSynthesizer, SyntheticScene, scene factories, fault injection).
+Scenes fabricate exact ground truth so the solver stack is tested end to
+end deterministically. numpy throughout; projection through the port's
+CameraData. Not ported yet: explorer.py (GUI signals and the task manager,
+ROADMAP.md queue 1 item 25) and fixture_repository.py (scenes saved as
+files, item 14, with the volume's save/load).
+"""
+
+from caliscope_tpu_torch.synthetic.se3 import SE3Pose  # noqa: F401
+from caliscope_tpu_torch.synthetic.trajectory import Trajectory  # noqa: F401
+from caliscope_tpu_torch.synthetic.calibration_object import CalibrationObject  # noqa: F401
+from caliscope_tpu_torch.synthetic.camera_synthesizer import CameraSynthesizer, LensProfile  # noqa: F401
+from caliscope_tpu_torch.synthetic.scene import SyntheticScene  # noqa: F401
+from caliscope_tpu_torch.synthetic import factories  # noqa: F401

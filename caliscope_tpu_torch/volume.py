@@ -1,20 +1,21 @@
-"""CaptureVolume: the frozen calibration aggregate and its bundle-adjustment
-operations.
+"""CaptureVolume: the frozen calibration aggregate and its operations.
 
-Port of the optimize/filter half of caliscope_tpu/volume.py. Every
-transform returns a new frozen instance. `optimize()` buckets the
-observation and point counts and picks the dense point-minor layout exactly
-as the JAX package does, then runs the port's LM solve
+Port of caliscope_tpu/volume.py. Every transform returns a new frozen
+instance. `bootstrap()` poses the cameras from the pose network
+(solvers/pose_network.py), triangulates, re-assembles a badly chained rig
+from its best stereo pair and re-resects outlier cameras. `optimize()`
+buckets the observation and point counts and picks the dense point-minor
+layout exactly as the JAX package does, then runs the port's LM solve
 (solvers/bundle.py) on the volume's device; reports and filters reuse the
-same reprojection code.
+same reprojection code. Anchoring by a similarity transform
+(`align_to_object`, `rotate`, `translate`, `centered`) runs on the host.
 
 A volume runs on `device` (CUDA unless the caller passes another, e.g.
 "cpu") in `dtype` (float32 on CUDA, float64 on the CPU unless given).
 
-Not ported yet: `bootstrap` (the pose network), anchoring (align_to_object,
-rotate, translate, scaled, oriented, grounded, centered), save/load and
-rigidity / volumetric-scale QA; a non-None `constraints` raises
-NotImplementedError (ROADMAP.md queue 1).
+Not ported yet: `scaled`, `oriented`, `grounded`, save/load and rigidity /
+volumetric-scale QA (ROADMAP.md queue 1 item 14); a non-None `constraints`
+raises NotImplementedError (item 13).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from caliscope_tpu_torch.cameras import CameraArray
 from caliscope_tpu_torch.device import resolve_device, resolve_dtype
 from caliscope_tpu_torch.exceptions import CalibrationError
 from caliscope_tpu_torch.observations import STATIC_SYNC_INDEX, ImagePoints, WorldPoints
+from caliscope_tpu_torch.ops.similarity import SimilarityParams, apply_similarity_to_extrinsics, umeyama
 from caliscope_tpu_torch.reports import OptimizationStatus, RawErrors, ReprojectionReport
 from caliscope_tpu_torch.scale import compute_depth_ratios
 from caliscope_tpu_torch.solvers.bundle import not_ported
@@ -204,6 +206,69 @@ class CaptureVolume:
             n_cameras=len(self.camera_array.posed_cameras),
             n_points=len(self.world_points),
         )
+
+    # ---- bootstrap ---------------------------------------------------------
+    @classmethod
+    def bootstrap(
+        cls,
+        image_points: ImagePoints,
+        camera_array: CameraArray,
+        constraints: None = None,
+        device=None,
+        dtype=None,
+    ) -> "CaptureVolume":
+        """Pose network -> apply -> triangulate, on `device` (CUDA unless
+        named); the volume gets `dtype`, the pose network the device's
+        default. Does NOT optimize."""
+        from caliscope_tpu_torch.solvers.pose_network import build_pose_network, scaffold_assembly
+
+        if constraints is not None:
+            raise not_ported("CaptureVolume with constraints", "item 13, constraints and constrained BA")
+        device = resolve_device(device)
+        dtype = resolve_dtype(device, dtype)
+        point_cam_ids = set(int(c) for c in np.unique(image_points.cam_id))
+        missing = point_cam_ids - set(camera_array.cameras.keys())
+        if missing:
+            raise CalibrationError(f"ImagePoints reference cameras {missing} not in the CameraArray.")
+        uncalibrated = [cid for cid, c in camera_array.cameras.items() if not c.has_intrinsics]
+        if uncalibrated:
+            raise CalibrationError(
+                f"Cannot run extrinsic calibration -- cameras {uncalibrated} have no intrinsic calibration.\n"
+                f"Run calibrate_intrinsics() for each camera first."
+            )
+        cameras = camera_array.copy()
+        pose_network = build_pose_network(image_points, cameras, device=device)
+        pose_network.apply_to(cameras)
+        on = dict(device=device, dtype=dtype)
+        world_points = image_points.triangulate(cameras, **on)
+        volume = cls(camera_array=cameras, image_points=image_points, world_points=world_points, **on)
+
+        # Sparse co-visibility can leave the transitively-chained network
+        # inconsistent while each pairwise estimate looks fine. When the
+        # chained rig reprojects poorly, rebuild from the best stereo pair's
+        # cloud (scaffold + resection) and keep whichever rig is better.
+        if volume.reprojection_report.overall_rmse > 20.0:
+            rebuilt = scaffold_assembly(image_points, cameras, pose_network, **on)
+            if rebuilt is not None and len(rebuilt.posed_cameras) >= min(len(cameras.posed_cameras), 2):
+                world2 = image_points.triangulate(rebuilt, **on)
+                try:
+                    candidate = cls(camera_array=rebuilt, image_points=image_points, world_points=world2, **on)
+                    # prefer the rig that poses more cameras; break ties on RMSE
+                    n_new, n_old = len(rebuilt.posed_cameras), len(volume.camera_array.posed_cameras)
+                    if n_new > n_old or (
+                        n_new == n_old
+                        and candidate.reprojection_report.overall_rmse < volume.reprojection_report.overall_rmse
+                    ):
+                        logger.warning(
+                            f"Bootstrap: scaffold re-assembly improved reprojection RMSE "
+                            f"{volume.reprojection_report.overall_rmse:.1f} -> "
+                            f"{candidate.reprojection_report.overall_rmse:.1f} px"
+                        )
+                        volume = candidate
+                except ValueError:
+                    pass
+
+        return _repair_bootstrap_outlier_cameras(volume, frozenset())
 
     # ---- bundle adjustment --------------------------------------------------
     def optimize(
@@ -398,3 +463,166 @@ class CaptureVolume:
         else:
             raise ValueError(f"Unknown filter scope {scope!r}; use per_camera or overall")
         return self._filter_by_thresholds(thresholds, min_per_camera)
+
+    # ---- anchoring ----------------------------------------------------------
+    def _apply_similarity(self, params: SimilarityParams) -> "CaptureVolume":
+        """The volume moved by a world-frame similarity (host, float64)."""
+        posed_ids = sorted(self.camera_array.posed_cameras)
+        R_new, t_new = apply_similarity_to_extrinsics(
+            params.scale,
+            np.asarray(params.rotation),
+            np.asarray(params.translation),
+            np.stack([self.camera_array.cameras[c].rotation for c in posed_ids]),
+            np.stack([self.camera_array.cameras[c].translation for c in posed_ids]),
+        )
+        new_cameras = self.camera_array.copy()
+        for i, cid in enumerate(posed_ids):
+            new_cameras.cameras[cid].rotation = R_new[i].numpy()
+            new_cameras.cameras[cid].translation = t_new[i].numpy()
+        return self._derived(
+            camera_array=new_cameras,
+            world_points=self.world_points.with_xyz(params.apply(self.world_points.xyz)),
+            _optimization_status=self._optimization_status,
+        )
+
+    def align_to_object(self, sync_index: int | None, object_id: int | None = None) -> "CaptureVolume":
+        """Rigid-align the volume to a marker's local frame: marker center at
+        origin, axes as printed (right-handed, Z out of the face). sync=None
+        only for static markers (which need constraints, not ported yet)."""
+        ip = self.image_points
+        if sync_index is None:  # static markers are declared by constraints: none here
+            if object_id is None:
+                raise ValueError("Omitting sync_index requires naming the static object_id to anchor on")
+            raise ValueError(
+                f"Anchoring without a sync_index works only on STATIC markers; object {object_id} moves between frames"
+            )
+        sel = ip.sync_index == sync_index
+        if not sel.any():
+            raise ValueError(f"Nothing was observed at sync_index={sync_index}; pick a frame the marker appears in")
+        if object_id is None:
+            objs = np.unique(ip.object_id[sel])
+            if len(objs) > 1:
+                raise ValueError(
+                    f"Multiple markers present at sync_index {sync_index}; specify object_id "
+                    f"(available: {sorted(int(o) for o in objs)})"
+                )
+            object_id = int(objs[0])
+        sel &= ip.object_id == object_id
+
+        # unique (keypoint -> obj_loc) among selected observations
+        kp_sel = ip.keypoint_id[sel]
+        ol_sel = ip.obj_loc[sel].copy()
+        if np.isnan(ol_sel[:, 2]).all() and np.isfinite(ol_sel[:, :2]).any():
+            logger.info("No z column in the object geometry; treating the target as the z=0 plane")
+            ol_sel[:, 2] = 0.0
+        uniq_kp, first = np.unique(kp_sel, return_index=True)
+        obj_map = {int(k): ol_sel[i] for k, i in zip(uniq_kp, first) if np.isfinite(ol_sel[i]).all()}
+
+        wp = self.world_points
+        wsel = (wp.sync_index == sync_index) & (wp.object_id == object_id)
+        src, dst = [], []
+        for i in np.where(wsel)[0]:
+            k = int(wp.keypoint_id[i])
+            if k in obj_map:
+                src.append(wp.xyz[i])
+                dst.append(obj_map[k])
+        if len(src) < 3:
+            raise ValueError(f"Need at least 3 valid correspondences for object_id={object_id}, got {len(src)}")
+        s, R, t = umeyama(np.asarray(src), np.asarray(dst), with_scale=False)
+        params = SimilarityParams(float(s), R.numpy(), t.numpy())
+        logger.info(
+            f"Estimated alignment: scale={params.scale:.6f}, translation={params.translation}, "
+            f"rotation_det={np.linalg.det(params.rotation):.6f}"
+        )
+        return self._apply_similarity(params)
+
+    @property
+    def unique_sync_indices(self) -> np.ndarray:
+        return np.sort(np.unique(self.world_points.sync_index))
+
+    def rotate(self, axis: Literal["x", "y", "z"], angle_degrees: float) -> "CaptureVolume":
+        """Right-hand-rule rotation of the whole coordinate system."""
+        a = np.radians(angle_degrees)
+        c, s = np.cos(a), np.sin(a)
+        if axis == "x":
+            R = np.array([[1, 0, 0], [0, c, -s], [0, s, c]])
+        elif axis == "y":
+            R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+        elif axis == "z":
+            R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+        else:
+            raise ValueError(f"Unknown rotation axis {axis!r} (expected one of x/y/z)")
+        return self._apply_similarity(SimilarityParams(1.0, R, np.zeros(3)))
+
+    def translate(self, x: float = 0.0, y: float = 0.0, z: float = 0.0) -> "CaptureVolume":
+        return self._apply_similarity(SimilarityParams(1.0, np.eye(3), np.array([x, y, z], float)))
+
+    def _camera_center(self, cam_id: int) -> np.ndarray:
+        cam = self.camera_array.cameras[cam_id]
+        if cam.rotation is None or cam.translation is None:
+            raise ValueError(f"Camera {cam_id} carries no extrinsics, so its optical center is undefined")
+        return -cam.rotation.T @ cam.translation
+
+    def centered(self) -> "CaptureVolume":
+        """XY origin at the centroid of posed camera centers; Z untouched."""
+        rig_xy = np.stack([self._camera_center(cid)[:2] for cid in self.camera_array.posed_cameras]).mean(axis=0)
+        return self.translate(x=-rig_xy[0], y=-rig_xy[1])
+
+
+def _repair_bootstrap_outlier_cameras(
+    volume: CaptureVolume,
+    static_ids: frozenset[int],
+    max_passes: int = 2,
+    rel_factor: float = 4.0,
+    abs_floor_px: float = 10.0,
+) -> CaptureVolume:
+    """Structure-based repair of badly-posed cameras after bootstrap.
+
+    Sparse co-visibility leaves some camera pairs with too few relative-pose
+    samples to reject planar-PnP flip contamination statistically (the IPPE
+    two-fold ambiguity: both lobes fit a single view equally well). The
+    repair is the multi-view disambiguator: triangulate a cloud from the
+    mutually-consistent cameras, then re-resect each outlier camera against
+    that cloud with PnP-RANSAC on the volume's device."""
+    from caliscope_tpu_torch.solvers.pose_network import resect_against_cloud
+
+    on = dict(device=volume.device, dtype=volume.dtype)
+    for _ in range(max_passes):
+        rep = volume.reprojection_report
+        by_cam = {c: r for c, r in rep.by_camera.items() if r > 0}
+        if len(by_cam) < 2:
+            return volume
+        best = min(by_cam.values())
+        threshold = max(rel_factor * best, abs_floor_px)
+        bad = [c for c, r in by_cam.items() if r > threshold]
+        # cameras with observations that the pose network could not place at
+        # all (no surviving pairs) are resected here too
+        observed = {int(c) for c in np.unique(volume.image_points.cam_id)}
+        unposed = sorted(
+            observed & {c for c, cam in volume.camera_array.cameras.items() if not cam.is_posed and not cam.ignore}
+        )
+        bad = sorted(set(bad) | set(unposed))
+        good = [c for c in by_cam if c not in bad]
+        if not bad or len(good) < 2:
+            return volume
+        logger.warning(
+            f"Bootstrap repair: cameras {bad} have reprojection RMSE above {threshold:.1f}px "
+            f"(best {best:.2f}px); re-resecting against the {len(good)}-camera cloud."
+        )
+        ip = volume.image_points
+        cloud = ip.select(np.isin(ip.cam_id, good)).triangulate(volume.camera_array, static_object_ids=static_ids, **on)
+
+        new_cameras = volume.camera_array.copy()
+        repaired = False
+        for cid in bad:
+            cam = new_cameras.cameras[cid]
+            result = resect_against_cloud(ip, cam, cloud, static_ids, volume.device, cid)
+            if result is None:
+                continue
+            cam.rotation, cam.translation, _med = result
+            repaired = True
+        if not repaired:
+            return volume
+        world = volume.image_points.triangulate(new_cameras, static_object_ids=static_ids, **on)
+        volume = volume._derived(camera_array=new_cameras, world_points=world)
+    return volume

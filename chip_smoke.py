@@ -32,7 +32,19 @@ on any failed check. Phases:
    percentile filter, final BA — with the kernel's launch count, the
    kernel-less Schur path's final cost, and the recovered rig against the
    truth.
-6. A `kernels` JSON line, then the last line
+6. Pipeline: the extrinsic calibration flow a user runs, cameras with
+   intrinsics and no extrinsics to a calibrated rig, through
+   caliscope_tpu_torch.pipelines.calibrate_extrinsics on the card — an
+   8-camera ring watching a 5x7 board for 600 frames (the port's synthetic
+   engine, default_ring_scene(8, 600): 168,000 observations, 21,000 points),
+   PnP bootstrap, linear / robust / final BA with the Schur kernel and the
+   percentile filter — gated on all cameras posed by the bootstrap, final
+   RMSE, the rig against the truth, and kernel launches equal to the Schur
+   solves; the bootstrap's device time, host time and device->host
+   synchronisations; the PnP batch (float32 on the card) against a float64
+   run; and a 4-camera x 20-frame run on the card against the port's own
+   CPU run.
+7. A `kernels` JSON line, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each slice's launch counts are set to 0 just before it is driven and read
@@ -45,6 +57,8 @@ import json
 import subprocess
 import sys
 import time
+import warnings
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -84,6 +98,25 @@ MAX_CORNER_ERROR_PX, MAX_MEAN_CORNER_ERROR_PX = 0.6, 0.3
 # the card's packets against the port's CPU packets on the same frames
 # (float sums in another order; the CPU tests hold 0.02 px against JAX)
 GPU_VS_CPU_ATOL_PX = 0.05
+
+# The pipeline workload: default_ring_scene(8, 600) — an 8-camera ring at
+# r = 2 m, 1920x1080, f = 1400 px, a 5x7 grid board on an orbit, 0.5 px
+# noise, seed 42; 600 frames are 20 s of one recording at 30 fps. Its gates
+# are the JAX package's headline contract (tests/synthetic/
+# test_production_pipeline.py: 0.5 deg / 5 mm per camera against the truth
+# after Umeyama on the camera centers), and the card's 4 x 20 run within
+# 0.05 deg / 1 mm of the port's CPU run (float32 against float64 BA).
+PIPE_SCENE = (8, 600)
+PIPE_SMALL = (4, 20)
+PIPE_BUCKET = 24_576  # bucket_size(21,000 points + 1, fine=True)
+MAX_PIPE_ROTATION_DEG = 0.5
+MAX_PIPE_CENTER_M = 0.005
+CARD_VS_CPU_ROTATION_DEG = 0.05
+CARD_VS_CPU_CENTER_M = 0.001
+# the float32 PnP batch (the port's, on the card) against float64: a group
+# classified the other way, or a DLT gone wrong, parts by degrees; roundoff
+# by ~1e-4 deg (3.6e-4 measured at 8 x 600)
+PNP_F32_MAX_GAP_DEG = 0.01
 
 # Peaks of the card the bounds are computed for, keyed by
 # torch.cuda.get_device_name(): bytes/s and non-tensor FP32 operations/s
@@ -247,12 +280,13 @@ def kernel_phase(device, peaks):
         return t + [torch.tensor([lam], dtype=torch.float32, device=device)]
 
     results = {}
-    # the main path's shape (C = 8, P = bucket_size(35001, fine=True)), a
-    # ragged point count, the camera bound, a camera count that is no
-    # multiple of 8 (padded tile rows), and fewer points than one tile. With
+    # the BA slice's shape (C = 8, P = bucket_size(35001, fine=True)), the
+    # pipeline's (C = 8, P = bucket_size(21001, fine=True)), a ragged point
+    # count, the camera bound, a camera count that is no multiple of 8
+    # (padded tile rows), and fewer points than one tile. With
     # one camera every point block has rank 2 and its damped inverse is of
     # order 1 / lam, which magnifies float32 roundoff by as much: lam = 1 there
-    for C, P in ((N_CAMERAS, 40_960), (N_CAMERAS, 12_345), (FS.MAX_CAMERAS, 4_099), (5, 1_000), (1, 7)):
+    for C, P in ((N_CAMERAS, 40_960), (N_CAMERAS, PIPE_BUCKET), (N_CAMERAS, 12_345), (FS.MAX_CAMERAS, 4_099), (5, 1_000), (1, 7)):
         args = inputs(C, P, seed=C * 100_000 + P, lam=1.0 if C == 1 else LAM)
         got = FS.schur_s_rhs(*args)
         again = FS.schur_s_rhs(*args)
@@ -315,6 +349,23 @@ def kernel_phase(device, peaks):
         f"torch.matmul {library_ms:.4f} ms); needs {bytes_ / 1e6:.1f} MB and {flops / 1e9:.3f} GFLOP -> "
         f"bound {entry['bound_ms'] * 1e3:.1f} us by {entry['bound_by']}"
     )
+    # the same numbers at the pipeline's shape
+    args, err = results[(N_CAMERAS, PIPE_BUCKET)]
+    launches_before = FS.schur_s_rhs.launches
+    ms = time_ms(lambda: FS.schur_s_rhs(*args))
+    plain_ms = time_ms(lambda: FS.schur_s_rhs_plain(*args))
+    passes = device_ms_by_kernel(lambda: FS.schur_s_rhs(*args))
+    FS.schur_s_rhs.launches = launches_before
+    A, B = A[:, : 3 * PIPE_BUCKET].contiguous(), B[: 3 * PIPE_BUCKET].contiguous()
+    library_ms = time_ms(lambda: torch.matmul(A, B))
+    bytes_, flops = schur_work(N_CAMERAS, PIPE_BUCKET)
+    t_bytes, t_ops = bytes_ / mem_rate * 1e3, flops / f32_rate * 1e3
+    entry["at_pipeline_shape"] = {
+        "C": N_CAMERAS, "P": PIPE_BUCKET, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms, "device_ms_by_pass": {name: rec["ms"] for name, rec in passes.items()},
+    }
+    log(f"kernel schur_s_rhs at the pipeline's shape: {json.dumps(entry['at_pipeline_shape'])}")
     return entry
 
 
@@ -687,8 +738,8 @@ def slice_phase(device, n_points=N_POINTS, n_obs=N_OBS):
         f"slice: {len(cameras)} cameras, {len(wp)} points, {len(ip)} observations on {device}; "
         f"triangulated in {time.perf_counter() - t0:.3f} s, initial RMSE {rmse0:.3f} px"
     )
-    errs = first_iteration_block_errors(device, volume)
-    log(f"kernel schur_s_rhs on the first LM iteration's blocks: scaled max |kernel - plain| {errs} (rtol {BLOCK_RTOL})")
+    errs, Pb = first_iteration_block_errors(device, volume)
+    log(f"kernel schur_s_rhs on the first LM iteration's blocks (P = {Pb}): scaled max |kernel - plain| {errs} (rtol {BLOCK_RTOL})")
     if not all(e <= BLOCK_RTOL for e in errs.values()):
         raise AssertionError("schur_s_rhs disagrees with its plain version on the canonical problem's blocks")
 
@@ -754,7 +805,7 @@ def dense_problem(device, volume):
     X0[: len(volume.world_points)] = volume.world_points.xyz
     problem = bundle.make_dense_problem(
         cam_idx, obj_idx, uv, views.K.numpy(), views.dist.numpy(), views.fisheye.numpy(), n_points=Pb,
-        device=device,
+        dtype=volume.dtype, device=device,
     )
     return problem, bundle.initial_cam9(volume.camera_array), X0
 
@@ -786,8 +837,8 @@ def scaled_errors(got, want, bp_t):
 def first_iteration_block_errors(device, volume):
     """schur_s_rhs against schur_s_rhs_plain on the blocks the first LM
     iteration of linear BA on `volume` hands it (start cameras, triangulated
-    points, the start damping): scaled errors as `scaled_errors` gives
-    them. Its launch is not the main path's."""
+    points, the start damping): (scaled errors as `scaled_errors` gives
+    them, bucketed point count). Its launch is not the main path's."""
     import torch
 
     from caliscope_tpu_torch.solvers import bundle
@@ -805,8 +856,8 @@ def first_iteration_block_errors(device, volume):
     want = FS.schur_s_rhs_plain(Jc, Jp, w, bp_t, lam)
     for name, t in zip(("S", "rhs", "Hpp_inv"), got):
         if not torch.isfinite(t).all():
-            raise AssertionError(f"schur_s_rhs: non-finite {name} on the canonical problem's blocks")
-    return scaled_errors(got, want, bp_t)
+            raise AssertionError(f"schur_s_rhs: non-finite {name} on the first LM iteration's blocks")
+    return scaled_errors(got, want, bp_t), problem.n_points
 
 
 def lm_iteration_times(device, volume, iters=10):
@@ -877,6 +928,261 @@ def profile_lm_iterations(device, volume, iters=3):
     return profile_call(device, lambda: bundle.lm_solve(problem, cam9, X0, config), units=iters)
 
 
+# ---------------------------------------------------------------------------
+# Pipeline: calibrate_extrinsics from unposed cameras
+# ---------------------------------------------------------------------------
+
+
+def align_to_truth(volume, truth):
+    """`volume` moved onto the truth's camera centers by Umeyama (with
+    scale), and per posed camera (rotation error deg, center error m)."""
+    import numpy as np
+
+    from caliscope_tpu_torch.ops.lie import rotation_geodesic_angle_host
+    from caliscope_tpu_torch.ops.similarity import SimilarityParams, umeyama
+
+    posed = sorted(volume.camera_array.posed_cameras)
+    center = lambda c: -c.rotation.T @ c.translation  # noqa: E731
+    src = np.array([center(volume.camera_array.cameras[c]) for c in posed])
+    dst = np.array([center(truth.cameras[c]) for c in posed])
+    s, R, t = umeyama(src, dst)
+    aligned = volume._apply_similarity(SimilarityParams(float(s), R.numpy(), t.numpy()))
+    errors = {}
+    for c in posed:
+        a, g = aligned.camera_array.cameras[c], truth.cameras[c]
+        errors[c] = (
+            float(np.degrees(rotation_geodesic_angle_host(a.rotation, g.rotation))),
+            float(np.linalg.norm(center(a) - center(g))),
+        )
+    return aligned, errors
+
+
+class PipelineRecorder:
+    """Instrumentation of calibrate_extrinsics runs: wall time between the
+    pipeline's progress calls, the bootstrap's volume, and per BA solve its
+    wall seconds, LM iterations and Schur kernel launches, with its input
+    volume, arguments and result in `calls`."""
+
+    def __init__(self):
+        self.marks, self.solves, self.calls, self.boot = [], [], [], None
+
+    def progress(self, pct, label):
+        self.marks.append((time.perf_counter(), label))
+
+    def stage_seconds(self):
+        return {a[1]: b[0] - a[0] for a, b in zip(self.marks, self.marks[1:])}
+
+    @contextmanager
+    def patched(self):
+        from caliscope_tpu_torch.solvers import fused_schur as FS
+        from caliscope_tpu_torch.volume import CaptureVolume
+
+        optimize, bootstrap = CaptureVolume.optimize, CaptureVolume.bootstrap.__func__
+
+        def recorded_optimize(volume, *args, **kwargs):
+            n0, t0 = FS.schur_s_rhs.launches, time.perf_counter()
+            out = optimize(volume, *args, **kwargs)
+            st = out.optimization_status
+            self.solves.append(dict(
+                seconds=time.perf_counter() - t0, iterations=st.iterations, converged=st.converged,
+                launches=FS.schur_s_rhs.launches - n0, loss=kwargs.get("loss", "linear"),
+                refine_intrinsics=kwargs.get("refine_intrinsics", False), n_obs=len(volume.image_points),
+            ))
+            self.calls.append((volume, args, kwargs, out))
+            return out
+
+        def recorded_bootstrap(cls, *args, **kwargs):
+            self.boot = bootstrap(cls, *args, **kwargs)
+            return self.boot
+
+        CaptureVolume.optimize, CaptureVolume.bootstrap = recorded_optimize, classmethod(recorded_bootstrap)
+        try:
+            yield self
+        finally:
+            CaptureVolume.optimize, CaptureVolume.bootstrap = optimize, classmethod(bootstrap)
+
+
+def run_pipeline(device, scene_size, what):
+    """The port's default_ring_scene through calibrate_extrinsics on
+    `device`, from the truth's intrinsics without extrinsics. Returns
+    (recorder, run, scene, seconds)."""
+    from caliscope_tpu_torch.pipelines import calibrate_extrinsics
+    from caliscope_tpu_torch.synthetic.camera_synthesizer import strip_extrinsics
+    from caliscope_tpu_torch.synthetic.factories import default_ring_scene
+
+    t0 = time.perf_counter()
+    scene = default_ring_scene(*scene_size)
+    ip = scene.image_points_noisy()
+    log(f"pipeline {what}: default_ring_scene{scene_size}: {len(ip)} observations, "
+        f"{len(scene.world_points())} points, built on the host in {time.perf_counter() - t0:.2f} s")
+    rec = PipelineRecorder()
+    with rec.patched():
+        sync(device)
+        t0 = time.perf_counter()
+        run = calibrate_extrinsics(ip, strip_extrinsics(scene.cameras), None, device=device, progress=rec.progress)
+        sync(device)
+        seconds = time.perf_counter() - t0
+    return rec, run, scene, ip, seconds
+
+
+BOOTSTRAP_PARTS = (
+    "estimate_camera_object_poses", "relative_pose_samples", "reject_outliers", "aggregate_pairs", "stereo_rmse",
+    "from_raw_estimates", "triangulate", "reprojection_report", "_repair_bootstrap_outlier_cameras",
+)
+
+
+def bootstrap_costs(device, ip, cameras):
+    """One more bootstrap of the same data on the card, under torch.profiler
+    (device time: the sum of its GPU kernels' durations), with CUDA's sync
+    debug mode on (one warning per synchronising operation it detects) and
+    under cProfile (cumulative host seconds of the bootstrap's parts, with
+    cProfile's own overhead). Returns (device s, GPU kernels, syncs, parts)."""
+    import cProfile
+    import pstats
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch
+
+    from caliscope_tpu_torch.volume import CaptureVolume
+
+    host = cProfile.Profile()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            warnings.simplefilter("always")
+            host.enable()
+            CaptureVolume.bootstrap(ip, cameras, device=device)
+            sync(device)
+            host.disable()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    parts = {}
+    for (path, _line, name), (_cc, _nc, _tt, cum, _callers) in pstats.Stats(host).stats.items():
+        if name in BOOTSTRAP_PARTS and "caliscope_tpu_torch" in path:
+            parts[name] = round(parts.get(name, 0.0) + cum, 4)
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e6, len(kernels), syncs, parts
+
+
+def pnp_float64_check(device, ip, cameras):
+    """The bootstrap's PnP batch as the port runs it on the card (float32)
+    beside a float64 run: the same groups kept, and how far apart the two
+    resections are. A flat board's smallest scatter eigenvalue in float32 is
+    roundoff within a decade of the planarity limit, so this runs every
+    time and fails past PNP_F32_MAX_GAP_DEG."""
+    import numpy as np
+    import torch
+
+    from caliscope_tpu_torch.ops.lie import rotation_geodesic_angle_host, so3_exp_host
+    from caliscope_tpu_torch.solvers.pose_network import estimate_camera_object_poses
+
+    out = {}
+    for name, dt in (("float32", None), ("float64", torch.float64)):
+        sync(device)
+        t0 = time.perf_counter()
+        out[name] = estimate_camera_object_poses(ip, cameras, device=device, dtype=dt)
+        sync(device)
+        out[name + "_s"] = time.perf_counter() - t0
+    a, b = out["float32"], out["float64"]
+    same_groups = len(a.cam_id) == len(b.cam_id) and all(
+        np.array_equal(getattr(a, k), getattr(b, k)) for k in ("sync_index", "cam_id", "object_id")
+    )
+    if not same_groups:
+        raise AssertionError(f"pipeline: the PnP batch keeps {len(a.cam_id)} groups in float32, {len(b.cam_id)} in float64")
+    ang = np.degrees(rotation_geodesic_angle_host(so3_exp_host(a.rvec), so3_exp_host(b.rvec)))
+    log(f"pipeline: PnP batch of the bootstrap, {len(a.cam_id)} groups kept in float32 ({out['float32_s']:.3f} s) and "
+        f"float64 ({out['float64_s']:.3f} s): rotation gap max {ang.max():.3e} deg (median {np.median(ang):.3e}), "
+        f"translation gap max {np.linalg.norm(a.tvec - b.tvec, axis=1).max():.3e} m")
+    if not ang.max() <= PNP_F32_MAX_GAP_DEG:
+        raise AssertionError(f"pipeline: float32 PnP {ang.max():.3e} deg from float64 (limit {PNP_F32_MAX_GAP_DEG})")
+
+
+def pipeline_phase(device, smi_line):
+    """Returns the Schur kernel's launches on the pipeline path."""
+    import numpy as np
+    import torch
+
+    from caliscope_tpu_torch.solvers import fused_schur as FS
+    from caliscope_tpu_torch.synthetic.camera_synthesizer import strip_extrinsics
+
+    FS.schur_s_rhs.launches = 0  # counts from here on are the pipeline's
+    rec, run, scene, ip, seconds = run_pipeline(device, PIPE_SCENE, "on the card")
+    launches = FS.schur_s_rhs.launches
+    volume = run.capture_volume
+    n_cams = len(scene.cameras.cameras)
+    stages = {k: round(v, 4) for k, v in rec.stage_seconds().items()}
+    log(f"pipeline on the card: {seconds:.2f} s in all [{smi_line}]; stage wall seconds {json.dumps(stages)}")
+    for solve, name in zip(rec.solves, ("linear BA", "robust BA", "final BA")):
+        log(f"pipeline {name}: " + json.dumps(solve))
+    log(f"pipeline: depth-ratio gate {'held the intrinsics fixed' if run.intrinsic_refinement_gated else 'let the intrinsics be refined'}; "
+        f"{len(volume.image_points)} of {len(ip)} observations kept; final RMSE {volume.reprojection_report.overall_rmse:.4f} px")
+    schur_solves = sum(s["iterations"] for s in rec.solves)
+    posed_by_boot = len(rec.boot.camera_array.posed_cameras) if rec.boot is not None else 0
+    if posed_by_boot != n_cams:
+        raise AssertionError(f"pipeline: the bootstrap posed {posed_by_boot} of {n_cams} cameras")
+    if not volume.reprojection_report.overall_rmse < MAX_FINAL_RMSE_PX:
+        raise AssertionError(f"pipeline: final RMSE {volume.reprojection_report.overall_rmse:.3f} px")
+    _aligned, errors = align_to_truth(volume, scene.cameras)
+    max_rot = max(e[0] for e in errors.values())
+    max_center = max(e[1] for e in errors.values())
+    log(f"pipeline: against the truth after Umeyama on the camera centers, rotation error max {max_rot:.5f} deg, "
+        f"center error max {max_center * 1e3:.4f} mm")
+    if len(errors) != n_cams or not (max_rot <= MAX_PIPE_ROTATION_DEG and max_center <= MAX_PIPE_CENTER_M):
+        raise AssertionError(f"pipeline: rig off the truth: {errors}")
+    if len(rec.solves) != 3 or launches < 1 or launches != schur_solves or sum(s["launches"] for s in rec.solves) != launches:
+        raise AssertionError(f"pipeline: schur_s_rhs launched {launches} times for {schur_solves} Schur solves ({rec.solves})")
+    log(f"pipeline: schur_s_rhs launches {launches} = Schur solves {schur_solves} over the three BA stages")
+
+    # the kernel on this path's own blocks: the first LM iteration of linear
+    # BA on the bootstrap's volume, against the plain version
+    errs, Pb = first_iteration_block_errors(device, rec.boot)
+    log(f"pipeline: kernel schur_s_rhs on linear BA's first LM iteration (C = {n_cams}, P = {Pb}): "
+        f"scaled max |kernel - plain| {errs} (rtol {BLOCK_RTOL})")
+    if Pb != PIPE_BUCKET or not all(e <= BLOCK_RTOL for e in errs.values()):
+        raise AssertionError(f"pipeline: schur_s_rhs disagrees with its plain version at P = {Pb}: {errs}")
+    # the final BA again from its own input without the kernel: same optimum
+    final_in, args, kwargs, final_out = rec.calls[2]
+    rerun = final_in.optimize(*args, **{**kwargs, "fused_schur": False})
+    c_kernel, c_plain = final_out.optimization_status.final_cost, rerun.optimization_status.final_cost
+    log(f"pipeline: final BA without the kernel: cost {c_plain:.9e} in {rerun.optimization_status.iterations} "
+        f"iterations vs {c_kernel:.9e} with it (rtol {SOLVE_COST_RTOL})")
+    if not abs(c_kernel - c_plain) <= SOLVE_COST_RTOL * abs(c_plain):
+        raise AssertionError("pipeline: kernel and kernel-less Schur paths reached different final costs")
+
+    cameras = strip_extrinsics(scene.cameras)
+    wall = stages["Bootstrapping poses"]
+    device_s, n_kernels, syncs, parts = bootstrap_costs(device, ip, cameras)
+    log(f"pipeline bootstrap: wall {wall:.3f} s (the pipeline's stage), of it {device_s:.4f} s of device time in "
+        f"{n_kernels} GPU kernels (torch.profiler, a second bootstrap) and {wall - device_s:.3f} s on the host; "
+        f"{syncs} device->host synchronisations (CUDA sync debug mode, the second bootstrap; a prototype that "
+        f"does not detect every synchronising operation, so a lower bound); cumulative seconds of its parts under "
+        f"cProfile (the second bootstrap, with cProfile's overhead) {json.dumps(parts)}")
+    pnp_float64_check(device, ip, cameras)
+
+    # the card against the port's own CPU run, 4 cameras x 20 frames
+    aligned = {}
+    for dev in (device, torch.device("cpu")):
+        _r, small, small_scene, _ip, small_s = run_pipeline(dev, PIPE_SMALL, f"on {dev.type}")
+        aligned[dev.type], errs = align_to_truth(small.capture_volume, small_scene.cameras)
+        log(f"pipeline {PIPE_SMALL} on {dev.type}: {small_s:.2f} s, rotation error max "
+            f"{max(e[0] for e in errs.values()):.5f} deg, center error max {max(e[1] for e in errs.values()) * 1e3:.4f} mm")
+    from caliscope_tpu_torch.ops.lie import rotation_geodesic_angle_host
+
+    gaps = []
+    for cid, g in aligned["cuda"].camera_array.posed_cameras.items():
+        c = aligned["cpu"].camera_array.cameras[cid]
+        gaps.append((float(np.degrees(rotation_geodesic_angle_host(g.rotation, c.rotation))),
+                     float(np.linalg.norm(g.rotation.T @ g.translation - c.rotation.T @ c.translation))))
+    gap_rot, gap_center = max(g[0] for g in gaps), max(g[1] for g in gaps)
+    log(f"pipeline {PIPE_SMALL}: the card within {gap_rot:.3e} deg and {gap_center * 1e3:.4f} mm of the CPU run")
+    if len(gaps) != PIPE_SMALL[0] or not (gap_rot <= CARD_VS_CPU_ROTATION_DEG and gap_center <= CARD_VS_CPU_CENTER_M):
+        raise AssertionError(f"pipeline: the card's 4 x 20 rig differs from the CPU's: {gaps}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -893,6 +1199,7 @@ def main() -> int:
     import caliscope_tpu_torch  # noqa: F401  (sets the TF32-off defaults)
     from caliscope_tpu_torch import _cuda_build
 
+    started = time.perf_counter()
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -940,6 +1247,12 @@ def main() -> int:
     )
     prof = profile_lm_iterations(device, filtered)
     log("profile (per LM iteration) " + (json.dumps(prof) if prof else "not measured (the profiler recorded no device time)"))
+    t0 = time.perf_counter()
+    pipe_launches = pipeline_phase(device, smi_line)
+    log(f"pipeline phase: {time.perf_counter() - t0:.2f} s")
+    entry["launches"] = launches + pipe_launches
+    entry["launches_by_path"] = {"ba_slice": launches, "pipeline": pipe_launches}
+    log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, the kernels' build included")
     log(json.dumps({"kernels": [entry, *detect_entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -31,18 +31,33 @@ SLICE_MODULES = [
     "caliscope_tpu_torch.detect.kernels",
     "caliscope_tpu_torch.frame_selector",
     "caliscope_tpu_torch.observations",
-    "caliscope_tpu_torch.packets",
+    "caliscope_tpu_torch.ops.epipolar",
     "caliscope_tpu_torch.ops.lie",
+    "caliscope_tpu_torch.ops.pnp",
     "caliscope_tpu_torch.ops.projection",
     "caliscope_tpu_torch.ops.reprojection",
+    "caliscope_tpu_torch.ops.similarity",
     "caliscope_tpu_torch.ops.triangulate",
+    "caliscope_tpu_torch.packets",
     "caliscope_tpu_torch.persistence",
+    "caliscope_tpu_torch.pipelines",
+    "caliscope_tpu_torch.pipelines.calibrate_extrinsics",
     "caliscope_tpu_torch.reports",
     "caliscope_tpu_torch.scale",
     "caliscope_tpu_torch.solvers.bundle",
     "caliscope_tpu_torch.solvers.fused_schur",
+    "caliscope_tpu_torch.solvers.pose_network",
+    "caliscope_tpu_torch.synthetic",
+    "caliscope_tpu_torch.synthetic.calibration_object",
+    "caliscope_tpu_torch.synthetic.camera_synthesizer",
+    "caliscope_tpu_torch.synthetic.factories",
+    "caliscope_tpu_torch.synthetic.faults",
+    "caliscope_tpu_torch.synthetic.scene",
+    "caliscope_tpu_torch.synthetic.se3",
+    "caliscope_tpu_torch.synthetic.trajectory",
     "caliscope_tpu_torch.targets.charuco",
     "caliscope_tpu_torch.targets.render",
+    "caliscope_tpu_torch.tasks",
     "caliscope_tpu_torch.tracker",
     "caliscope_tpu_torch.trackers.charuco_tracker",
     "caliscope_tpu_torch.volume",
