@@ -18,6 +18,12 @@ without extrinsics (`pipelines.calibrate_extrinsics`): batched PnP
 (`solvers/pose_network.py`), `CaptureVolume.bootstrap` and anchoring, and
 the synthetic scene engine (`synthetic/`); its BA stages run through the
 Schur kernel.
+The sixth slice carries the constrained production flow: rigidity
+constraints (`constraints.py`, `ConstraintSet.from_charuco`), constrained
+bundle adjustment, the sparse row layout (row-major and obs-minor) for
+static markers and chained co-visibility, and the 'cg' / 'schur_cg'
+solvers; these run as plain tensor operations (the Schur kernel takes only
+dense reprojection-only problems).
 
 Devices: every entry point (`calibrate_extrinsics`, `CaptureVolume`, `lm_solve`,
 `ImagePoints.triangulate`, `CharucoTracker`, `detect_markers`,
@@ -47,5 +53,6 @@ _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
 from caliscope_tpu_torch.cameras import CameraArray, CameraData  # noqa: E402,F401
+from caliscope_tpu_torch.constraints import ConstraintSet  # noqa: E402,F401
 from caliscope_tpu_torch.exceptions import CalibrationError, CalibrationWarning  # noqa: E402,F401
 from caliscope_tpu_torch.observations import STATIC_SYNC_INDEX, ImagePoints, WorldPoints  # noqa: E402,F401

@@ -16,6 +16,8 @@ Exporting from caliscope_tpu (in a program that has both packages):
     board = dataclasses.asdict(jax_charuco)
     pairs = {key: {f: getattr(sp, f) for f in STEREO_PAIR_FIELDS}
              for key, sp in jax_network.pairs.items()}
+    constraints = dataclasses.asdict(jax_constraint_set)
+    problem = {name: np.asarray(getattr(jax_problem, name)) for name in BA_PROBLEM_FIELDS}
 
 Detection has no other state: the ArUco dictionary data is a byte-identical
 copy inside the port, and packets are numpy on both sides.
@@ -26,8 +28,11 @@ from __future__ import annotations
 from typing import Any, Mapping
 
 import numpy as np
+import torch
 
 from caliscope_tpu_torch.cameras import CameraArray, CameraData
+from caliscope_tpu_torch.constraints import CentroidDistanceConstraint, ConstraintSet, DistanceConstraint, PointRemap
+from caliscope_tpu_torch.device import resolve_device, resolve_dtype
 from caliscope_tpu_torch.observations import ImagePoints, WorldPoints
 from caliscope_tpu_torch.solvers.pose_network import PairedPoseNetwork, StereoPair
 from caliscope_tpu_torch.targets.charuco import Charuco
@@ -36,6 +41,10 @@ CAMERA_FIELDS = ("matrix", "distortions", "rotation", "translation", "size", "fi
 IMAGE_POINT_FIELDS = ("sync_index", "cam_id", "object_id", "keypoint_id", "img_xy", "obj_loc", "frame_time")
 WORLD_POINT_FIELDS = ("sync_index", "object_id", "keypoint_id", "xyz", "frame_time")
 STEREO_PAIR_FIELDS = ("primary_cam_id", "secondary_cam_id", "error_score", "rotation", "translation")
+BA_PROBLEM_FIELDS = (
+    "cam_idx", "pt_idx", "uv", "obs_mask", "K0", "dist0", "fisheye", "inv_fx", "param_free",
+    "con_pa_idx", "con_pa_w", "con_pb_idx", "con_pb_w", "con_target", "con_weight",
+)
 CHARUCO_FIELDS = (
     "rows", "columns", "square_size_m", "aruco_scale", "dictionary", "legacy_pattern", "thickness_m", "inverted",
 )
@@ -106,3 +115,34 @@ def pose_network(pairs: Mapping[tuple[int, int], Mapping[str, Any]]) -> PairedPo
     """A PairedPoseNetwork's pairs (as for stereo_pairs, the bridged graph
     as the JAX network holds it) -> the port's network with the same graph."""
     return PairedPoseNetwork(stereo_pairs(pairs))
+
+
+def constraint_set(fields: Mapping[str, Any]) -> ConstraintSet:
+    """A ConstraintSet as `dataclasses.asdict` gives it (its constraints as
+    dicts of their fields) -> the port's ConstraintSet, constraint for
+    constraint in the same order."""
+    return ConstraintSet(
+        distances=tuple(DistanceConstraint(**d) for d in fields["distances"]),
+        static_object_ids=frozenset(int(o) for o in fields["static_object_ids"]),
+        centroid_distances=tuple(CentroidDistanceConstraint(**c) for c in fields.get("centroid_distances", ())),
+        point_remaps=tuple(PointRemap(**r) for r in fields.get("point_remaps", ())),
+        back_face_thickness_m=fields.get("back_face_thickness_m"),
+    )
+
+
+def ba_problem(arrays: Mapping[str, Any], device=None, dtype=None):
+    """A sparse bundle-adjustment problem's arrays (BA_PROBLEM_FIELDS, rows
+    as they are, already in make_problem's (point, camera) order) -> the
+    port's BAProblem on `device` (CUDA unless named)."""
+    from caliscope_tpu_torch.solvers.bundle import BAProblem
+
+    if set(arrays) != set(BA_PROBLEM_FIELDS):
+        raise ValueError(f"ba_problem: fields {sorted(arrays)}, expected {sorted(BA_PROBLEM_FIELDS)}")
+    device = resolve_device(device)
+    dtype = resolve_dtype(device, dtype)
+    kinds = dict(cam_idx=torch.int64, pt_idx=torch.int64, con_pa_idx=torch.int64, con_pb_idx=torch.int64,
+                 obs_mask=torch.bool, fisheye=torch.bool, param_free=torch.bool)
+    tensors = {
+        k: torch.as_tensor(np.array(v, copy=True), device=device, dtype=kinds.get(k, dtype)) for k, v in arrays.items()
+    }
+    return BAProblem(**tensors, any_fisheye=bool(np.asarray(arrays["fisheye"]).any()))

@@ -10,12 +10,20 @@ layout exactly as the JAX package does, then runs the port's LM solve
 same reprojection code. Anchoring by a similarity transform
 (`align_to_object`, `rotate`, `translate`, `centered`) runs on the host.
 
+A volume may carry a `ConstraintSet` (constraints.py): its static objects
+join their observations onto one world point per keypoint
+(STATIC_SYNC_INDEX), `optimize` adds its distance rows to the solve
+(weighted by pixel_sigma / median focal / sigma, as the JAX package weighs
+them), `rigidity_report` measures them, and every derived volume carries it.
+Duplicate (point, camera) pairs — a static corner seen from many frames —
+or a grid under a third full send `optimize` to the sparse row layout.
+`save`/`load` write and read the volume's tables and constraints.toml.
+
 A volume runs on `device` (CUDA unless the caller passes another, e.g.
 "cpu") in `dtype` (float32 on CUDA, float64 on the CPU unless given).
 
-Not ported yet: `scaled`, `oriented`, `grounded`, save/load and rigidity /
-volumetric-scale QA (ROADMAP.md queue 1 item 14); a non-None `constraints`
-raises NotImplementedError (item 13).
+Not ported yet: `scaled`, `oriented`, `grounded` and volumetric-scale QA
+(ROADMAP.md queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -23,19 +31,20 @@ from __future__ import annotations
 import logging
 from dataclasses import dataclass, field
 from functools import cached_property
+from pathlib import Path
 from typing import Literal, Optional
 
 import numpy as np
 import torch
 
 from caliscope_tpu_torch.cameras import CameraArray
+from caliscope_tpu_torch.constraints import ConstraintSet, RigidityReport, rigidity_report
 from caliscope_tpu_torch.device import resolve_device, resolve_dtype
 from caliscope_tpu_torch.exceptions import CalibrationError
 from caliscope_tpu_torch.observations import STATIC_SYNC_INDEX, ImagePoints, WorldPoints
 from caliscope_tpu_torch.ops.similarity import SimilarityParams, apply_similarity_to_extrinsics, umeyama
 from caliscope_tpu_torch.reports import OptimizationStatus, RawErrors, ReprojectionReport
 from caliscope_tpu_torch.scale import compute_depth_ratios
-from caliscope_tpu_torch.solvers.bundle import not_ported
 
 logger = logging.getLogger(__name__)
 
@@ -45,7 +54,7 @@ class CaptureVolume:
     camera_array: CameraArray
     image_points: ImagePoints
     world_points: WorldPoints
-    constraints: None = None
+    constraints: Optional[ConstraintSet] = None
     device: Optional[torch.device] = field(default=None, compare=False)
     dtype: Optional[torch.dtype] = field(default=None, compare=False)
     img_to_obj_map: np.ndarray = field(init=False, compare=False)
@@ -53,8 +62,6 @@ class CaptureVolume:
 
     # ---- construction / validation ----------------------------------------
     def __post_init__(self):
-        if self.constraints is not None:
-            raise not_ported("CaptureVolume with constraints", "item 13, constraints and constrained BA")
         device = resolve_device(self.device)
         object.__setattr__(self, "device", device)
         object.__setattr__(self, "dtype", resolve_dtype(device, self.dtype))
@@ -65,12 +72,18 @@ class CaptureVolume:
     def optimization_status(self) -> Optional[OptimizationStatus]:
         return self._optimization_status
 
+    @property
+    def static_object_ids(self) -> frozenset[int]:
+        return self.constraints.static_object_ids if self.constraints else frozenset()
+
     def _derived(self, **changes) -> "CaptureVolume":
-        """A new volume on the same device and dtype."""
+        """A new volume on the same device and dtype, with the same
+        constraints unless changed."""
         fields = dict(
             camera_array=self.camera_array,
             image_points=self.image_points,
             world_points=self.world_points,
+            constraints=self.constraints,
             device=self.device,
             dtype=self.dtype,
         )
@@ -80,15 +93,20 @@ class CaptureVolume:
     def _compute_img_to_obj_map(self) -> np.ndarray:
         """Join each image row onto its world-point row by (sync, object,
         keypoint) key; -1 where the join misses (packed int64 keys matched
-        with a sorted searchsorted lookup)."""
+        with a sorted searchsorted lookup). Observations of static objects
+        use the STATIC_SYNC_INDEX sentinel as their sync key."""
         wp, ip = self.world_points, self.image_points
+        obs_sync = ip.sync_index.astype(np.int64)
+        static_ids = self.static_object_ids
+        if static_ids:
+            obs_sync = np.where(np.isin(ip.object_id, list(static_ids)), np.int64(STATIC_SYNC_INDEX), obs_sync)
 
         def pack(sync, obj, kp):
             # 2^21 headroom per field: sync up to ~2M, object/keypoint ids too
             return ((sync + 2) << 42) | (obj.astype(np.int64) << 21) | kp.astype(np.int64)
 
         world_keys = pack(wp.sync_index.astype(np.int64), wp.object_id, wp.keypoint_id)
-        obs_keys = pack(ip.sync_index.astype(np.int64), ip.object_id, ip.keypoint_id)
+        obs_keys = pack(obs_sync, ip.object_id, ip.keypoint_id)
         if len(world_keys) == 0:
             return np.full(len(obs_keys), -1, dtype=np.int32)
         order = np.argsort(world_keys, kind="stable")
@@ -207,23 +225,48 @@ class CaptureVolume:
             n_points=len(self.world_points),
         )
 
+    # ---- persistence -------------------------------------------------------
+    def save(self, directory: Path | str) -> None:
+        """camera_array.toml, image_points.csv, world_points.csv and, with
+        constraints, constraints.toml — the JAX package's files."""
+        directory = Path(directory)
+        directory.mkdir(parents=True, exist_ok=True)
+        self.camera_array.to_toml(directory / "camera_array.toml")
+        self.image_points.to_csv(directory / "image_points.csv")
+        self.world_points.to_csv(directory / "world_points.csv")
+        if self.constraints is not None:
+            self.constraints.to_toml(directory / "constraints.toml")
+
+    @classmethod
+    def load(cls, directory: Path | str, device=None, dtype=None) -> "CaptureVolume":
+        """The volume `save` wrote, on `device` (CUDA unless named)."""
+        directory = Path(directory)
+        constraints_path = directory / "constraints.toml"
+        return cls(
+            camera_array=CameraArray.from_toml(directory / "camera_array.toml"),
+            image_points=ImagePoints.from_csv(directory / "image_points.csv"),
+            world_points=WorldPoints.from_csv(directory / "world_points.csv"),
+            constraints=ConstraintSet.from_toml(constraints_path) if constraints_path.exists() else None,
+            device=device,
+            dtype=dtype,
+        )
+
     # ---- bootstrap ---------------------------------------------------------
     @classmethod
     def bootstrap(
         cls,
         image_points: ImagePoints,
         camera_array: CameraArray,
-        constraints: None = None,
+        constraints: Optional[ConstraintSet] = None,
         device=None,
         dtype=None,
     ) -> "CaptureVolume":
         """Pose network -> apply -> triangulate, on `device` (CUDA unless
         named); the volume gets `dtype`, the pose network the device's
-        default. Does NOT optimize."""
+        default. Static objects of `constraints` triangulate to one point
+        per keypoint. Does NOT optimize."""
         from caliscope_tpu_torch.solvers.pose_network import build_pose_network, scaffold_assembly
 
-        if constraints is not None:
-            raise not_ported("CaptureVolume with constraints", "item 13, constraints and constrained BA")
         device = resolve_device(device)
         dtype = resolve_dtype(device, dtype)
         point_cam_ids = set(int(c) for c in np.unique(image_points.cam_id))
@@ -240,19 +283,25 @@ class CaptureVolume:
         pose_network = build_pose_network(image_points, cameras, device=device)
         pose_network.apply_to(cameras)
         on = dict(device=device, dtype=dtype)
-        world_points = image_points.triangulate(cameras, **on)
-        volume = cls(camera_array=cameras, image_points=image_points, world_points=world_points, **on)
+        static_ids = constraints.static_object_ids if constraints else frozenset()
+        world_points = image_points.triangulate(cameras, static_object_ids=static_ids, **on)
+        volume = cls(
+            camera_array=cameras, image_points=image_points, world_points=world_points, constraints=constraints, **on
+        )
 
         # Sparse co-visibility can leave the transitively-chained network
         # inconsistent while each pairwise estimate looks fine. When the
         # chained rig reprojects poorly, rebuild from the best stereo pair's
         # cloud (scaffold + resection) and keep whichever rig is better.
         if volume.reprojection_report.overall_rmse > 20.0:
-            rebuilt = scaffold_assembly(image_points, cameras, pose_network, **on)
+            rebuilt = scaffold_assembly(image_points, cameras, pose_network, static_object_ids=static_ids, **on)
             if rebuilt is not None and len(rebuilt.posed_cameras) >= min(len(cameras.posed_cameras), 2):
-                world2 = image_points.triangulate(rebuilt, **on)
+                world2 = image_points.triangulate(rebuilt, static_object_ids=static_ids, **on)
                 try:
-                    candidate = cls(camera_array=rebuilt, image_points=image_points, world_points=world2, **on)
+                    candidate = cls(
+                        camera_array=rebuilt, image_points=image_points, world_points=world2,
+                        constraints=constraints, **on,
+                    )
                     # prefer the rig that poses more cameras; break ties on RMSE
                     n_new, n_old = len(rebuilt.posed_cameras), len(volume.camera_array.posed_cameras)
                     if n_new > n_old or (
@@ -268,9 +317,60 @@ class CaptureVolume:
                 except ValueError:
                     pass
 
-        return _repair_bootstrap_outlier_cameras(volume, frozenset())
+        return _repair_bootstrap_outlier_cameras(volume, static_ids)
 
     # ---- bundle adjustment --------------------------------------------------
+    def ba_problem(self, refine_intrinsics: bool = False, use_constraints: bool = True, pixel_sigma: float = 1.0):
+        """The bundle-adjustment problem `optimize` solves for this volume,
+        on its device: (problem, start cameras (C,9), start points (Pb,3)),
+        with the counts bucketed, the layout chosen and the constraint rows
+        weighted as `optimize` does it."""
+        from caliscope_tpu_torch.ops.bucket import bucket_size, pad_rows
+        from caliscope_tpu_torch.solvers.bundle import initial_cam9, make_dense_problem, make_problem
+
+        _mask, cam_idx, obj_idx, uv, views = self._matched_arrays()
+        K, dist, fisheye = views.K.numpy(), views.dist.numpy(), views.fisheye.numpy()
+
+        constraint_arrays = None
+        if use_constraints and self.constraints is not None:
+            arrays = self.constraints.compile_arrays(self.world_points)
+            if arrays is not None:
+                pa_idx, pa_w, pb_idx, pb_w, dists, sigmas = arrays
+                f_median = float(np.median(K[:, 0, 0]))
+                weights = (pixel_sigma / f_median) / sigmas
+                constraint_arrays = (pa_idx, pa_w, pb_idx, pb_w, dists, weights)
+                logger.info(f"Adding {len(dists)} constraint rows (f_median={f_median:.0f}, pixel_sigma={pixel_sigma})")
+
+        # Bucket observation and point counts as the JAX package does (one
+        # problem shape per quarter octave). Padding rows carry
+        # obs_mask=False and point at the reserved tail slot; padding points
+        # start at the cloud centroid and are pinned by the solver's
+        # zero-diagonal prior, so their update is exactly zero.
+        N_real, P_real = len(uv), len(self.world_points)
+        Nb, Pb = bucket_size(N_real, fine=True), bucket_size(P_real + 1, fine=True)
+        X0 = np.empty((Pb, 3))
+        X0[:P_real] = self.world_points.xyz
+        X0[P_real:] = self.world_points.xyz.mean(axis=0)
+
+        # Layout choice: the dense (P, C) grid needs unique (point, camera)
+        # pairs and pays off when the grid is at least a third full; static
+        # objects (many frames onto one point) and sparse co-visibility take
+        # the sparse row layout
+        n_cams = len(K)
+        pair_key = obj_idx.astype(np.int64) * n_cams + cam_idx
+        unique_pairs = len(np.unique(pair_key)) == len(pair_key)
+        common = dict(refine_intrinsics=refine_intrinsics, constraints=constraint_arrays, dtype=self.dtype, device=self.device)
+        if unique_pairs and Pb * n_cams <= 3 * max(N_real, 1):
+            problem = make_dense_problem(cam_idx, obj_idx, uv, K, dist, fisheye, n_points=Pb, **common)
+        else:
+            obs_mask = np.zeros(Nb, bool)
+            obs_mask[:N_real] = True
+            problem = make_problem(
+                pad_rows(cam_idx, Nb), pad_rows(obj_idx, Nb, fill=Pb - 1), pad_rows(uv, Nb), K, dist, fisheye,
+                obs_mask=obs_mask, **common,
+            )
+        return problem, initial_cam9(self.camera_array), X0
+
     def optimize(
         self,
         ftol: float = 1e-8,
@@ -283,66 +383,35 @@ class CaptureVolume:
         loss: str = "linear",
         f_scale: float = 1.0,
         solver: str = "auto",
+        shard: str = "auto",
+        bake_problem: bool = False,
         fused_schur: bool | None = None,
     ) -> "CaptureVolume":
         """Bundle adjustment. Extrinsics-only by default; refine_intrinsics
-        adds the [s, k1, k2] block per camera.
+        adds the [s, k1, k2] block per camera. With use_constraints and a
+        constraint set, its firing distance rows join the solve at weight
+        (pixel_sigma / median focal) / sigma.
 
+        shard / bake_problem: only the single-placement defaults run
+        (sharding is not ported; lm_solve raises for the others).
         fused_schur: passed to lm_solve — None (default) assembles the Schur
         system with the CUDA kernel whenever the problem qualifies, False
         never, True always (raising where the kernel cannot run)."""
-        from caliscope_tpu_torch.ops.bucket import bucket_size
-        from caliscope_tpu_torch.solvers.bundle import (
-            BAConfig,
-            bound_warnings,
-            initial_cam9,
-            lm_solve,
-            make_dense_problem,
-        )
+        from caliscope_tpu_torch.solvers.bundle import BAConfig, bound_warnings, lm_solve
 
-        _mask, cam_idx, obj_idx, uv, views = self._matched_arrays()
-
-        # Bucket observation and point counts as the JAX package does (one
-        # problem shape per quarter octave). Padding points start at the
-        # cloud centroid and are pinned by the solver's zero-diagonal prior,
-        # so their update is exactly zero.
-        N_real, P_real = len(uv), len(self.world_points)
-        Pb = bucket_size(P_real + 1, fine=True)
-        X0 = np.empty((Pb, 3))
-        X0[:P_real] = self.world_points.xyz
-        X0[P_real:] = self.world_points.xyz.mean(axis=0)
-
-        # Layout choice: the dense (P, C) grid needs unique (point, camera)
-        # pairs and pays off when the grid is at least a third full
-        n_cams = len(views.K)
-        pair_key = obj_idx.astype(np.int64) * n_cams + cam_idx
-        unique_pairs = len(np.unique(pair_key)) == len(pair_key)
-        if not (unique_pairs and Pb * n_cams <= 3 * max(N_real, 1)):
-            raise not_ported(
-                "Bundle adjustment on the sparse row layout (duplicate pairs or a grid under a third full)",
-                "item 16, sparse row and obs-minor layouts",
-            )
-        problem = make_dense_problem(
-            cam_idx,
-            obj_idx,
-            uv,
-            views.K.numpy(),
-            views.dist.numpy(),
-            views.fisheye.numpy(),
-            n_points=Pb,
-            refine_intrinsics=refine_intrinsics,
-            dtype=self.dtype,
-            device=self.device,
-        )
+        problem, cam9_0, X0 = self.ba_problem(refine_intrinsics, use_constraints, pixel_sigma)
+        P_real = len(self.world_points)
         config = BAConfig(
             loss=loss,
             f_scale=f_scale,
             max_iter=max_nfev if max_nfev is not None else 200,
             ftol=ftol,
             solver=solver,
+            shard=shard,
+            bake_problem=bake_problem,
         )
-        logger.info(f"Beginning bundle adjustment on {N_real} observations ({Pb} bucketed points)")
-        result = lm_solve(problem, initial_cam9(self.camera_array), X0, config, fused_schur=fused_schur)
+        logger.info(f"Beginning bundle adjustment on {len(self.image_points)} observations ({X0.shape[0]} bucketed points)")
+        result = lm_solve(problem, cam9_0, X0, config, fused_schur=fused_schur)
 
         termination = "converged_ftol" if result.converged else "max_iterations"
         if strict and not result.converged:
@@ -376,6 +445,10 @@ class CaptureVolume:
             world_points=self.world_points.with_xyz(result.X[:P_real].cpu().numpy().astype(np.float64)),
             _optimization_status=status,
         )
+
+    # ---- rigidity QA --------------------------------------------------------
+    def rigidity_report(self) -> RigidityReport:
+        return rigidity_report(self.constraints, self.world_points)
 
     def depth_ratios(self) -> dict[int, float]:
         return compute_depth_ratios(self.camera_array, self.world_points)
@@ -488,15 +561,17 @@ class CaptureVolume:
     def align_to_object(self, sync_index: int | None, object_id: int | None = None) -> "CaptureVolume":
         """Rigid-align the volume to a marker's local frame: marker center at
         origin, axes as printed (right-handed, Z out of the face). sync=None
-        only for static markers (which need constraints, not ported yet)."""
+        only for static markers."""
         ip = self.image_points
-        if sync_index is None:  # static markers are declared by constraints: none here
+        static_ids = self.static_object_ids
+        if sync_index is None:
             if object_id is None:
                 raise ValueError("Omitting sync_index requires naming the static object_id to anchor on")
-            raise ValueError(
-                f"Anchoring without a sync_index works only on STATIC markers; object {object_id} moves between frames"
-            )
-        sel = ip.sync_index == sync_index
+            if object_id not in static_ids:
+                raise ValueError(
+                    f"Anchoring without a sync_index works only on STATIC markers; object {object_id} moves between frames"
+                )
+        sel = np.ones(len(ip), bool) if sync_index is None else ip.sync_index == sync_index
         if not sel.any():
             raise ValueError(f"Nothing was observed at sync_index={sync_index}; pick a frame the marker appears in")
         if object_id is None:
@@ -508,6 +583,7 @@ class CaptureVolume:
                 )
             object_id = int(objs[0])
         sel &= ip.object_id == object_id
+        world_si = STATIC_SYNC_INDEX if object_id in static_ids else (sync_index if sync_index is not None else 0)
 
         # unique (keypoint -> obj_loc) among selected observations
         kp_sel = ip.keypoint_id[sel]
@@ -519,7 +595,7 @@ class CaptureVolume:
         obj_map = {int(k): ol_sel[i] for k, i in zip(uniq_kp, first) if np.isfinite(ol_sel[i]).all()}
 
         wp = self.world_points
-        wsel = (wp.sync_index == sync_index) & (wp.object_id == object_id)
+        wsel = (wp.sync_index == world_si) & (wp.object_id == object_id)
         src, dst = [], []
         for i in np.where(wsel)[0]:
             k = int(wp.keypoint_id[i])

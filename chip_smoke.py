@@ -44,7 +44,24 @@ on any failed check. Phases:
    synchronisations; the PnP batch (float32 on the card) against a float64
    run; and a 4-camera x 20-frame run on the card against the port's own
    CPU run.
-7. A `kernels` JSON line, then the last line
+7. Constrained and sparse pipelines: the production ChArUco flow, cameras
+   with intrinsics and no extrinsics through calibrate_extrinsics with a
+   ConstraintSet on the card, three runs at 8 cameras x 600 frames —
+   (a) default_ring_scene with the board truss, (b) two_sided_ring_scene
+   with ConstraintSet.from_charuco (cross-face ties active), (c)
+   ring_with_static_markers(8, 600, 3) with the truss and the static marker
+   squares, on the sparse row layout — each gated on all cameras posed,
+   final RMSE < 1 px, 0.5 deg / 5 mm to the truth, rigidity < 2 mm ((a),
+   (b)) or no static marker dropped ((c)), and no Schur kernel launch (its
+   gate is closed for constrained and sparse problems). Per run: stage wall
+   seconds, LM and CG iterations per BA stage, and for the final BA stage
+   repeated its device->host synchronisations and device time. Also: one LM
+   iteration of (c)'s problem in the row-major and the obs-minor layout and
+   the layout 'auto' takes; 'cg' and 'schur_cg' on the canonical BA problem
+   against the 'schur' optimum; whether a repeated constrained solve gives
+   the same bits; and a small two-sided run on the card against the port's
+   CPU run.
+8. A `kernels` JSON line, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each slice's launch counts are set to 0 just before it is driven and read
@@ -117,6 +134,17 @@ CARD_VS_CPU_CENTER_M = 0.001
 # classified the other way, or a DLT gone wrong, parts by degrees; roundoff
 # by ~1e-4 deg (3.6e-4 measured at 8 x 600)
 PNP_F32_MAX_GAP_DEG = 0.01
+
+# The constrained and sparse pipelines, 8 cameras x 600 frames each, on the
+# JAX package's production contract (0.5 deg / 5 mm, the 2 mm rigidity
+# limit RIGIDITY_TOL_MM of tests/synthetic/test_production_pipeline.py).
+CONSTRAINED_SCENE = (8, 600)
+N_STATIC_MARKERS = 3
+MAX_RIGIDITY_MM = 2.0
+# 'cg' and 'schur_cg' against the 'schur' optimum of the canonical problem
+SOLVER_COST_RTOL = 1e-5
+# LM iterations timed per layout on the static-marker problem
+LAYOUT_TIMING_ITERS = 5
 
 # Peaks of the card the bounds are computed for, keyed by
 # torch.cuda.get_device_name(): bytes/s and non-tensor FP32 operations/s
@@ -791,25 +819,6 @@ def slice_phase(device, n_points=N_POINTS, n_obs=N_OBS):
     return launches, schur_solves, records, volumes[3]
 
 
-def dense_problem(device, volume):
-    """The dense LM problem CaptureVolume.optimize builds for `volume`
-    (same bucketing), with its start cameras and points."""
-    import numpy as np
-
-    from caliscope_tpu_torch.ops.bucket import bucket_size
-    from caliscope_tpu_torch.solvers import bundle
-
-    _m, cam_idx, obj_idx, uv, views = volume._matched_arrays()
-    Pb = bucket_size(len(volume.world_points) + 1, fine=True)
-    X0 = np.tile(volume.world_points.xyz.mean(0), (Pb, 1))
-    X0[: len(volume.world_points)] = volume.world_points.xyz
-    problem = bundle.make_dense_problem(
-        cam_idx, obj_idx, uv, views.K.numpy(), views.dist.numpy(), views.fisheye.numpy(), n_points=Pb,
-        dtype=volume.dtype, device=device,
-    )
-    return problem, bundle.initial_cam9(volume.camera_array), X0
-
-
 def scaled_errors(got, want, bp_t):
     """Max |got - want| of (S, rhs, Hpp_inv), each entry divided by its
     Cauchy-Schwarz bound from the positive semi-definite `want`:
@@ -844,7 +853,7 @@ def first_iteration_block_errors(device, volume):
     from caliscope_tpu_torch.solvers import bundle
     from caliscope_tpu_torch.solvers import fused_schur as FS
 
-    problem, cam9, X0 = dense_problem(device, volume)
+    problem, cam9, X0 = volume.ba_problem()  # the dense problem optimize builds
     on_dev = dict(dtype=problem.uv.dtype, device=device)
     r, w, Jc, Jp, _ = bundle._masked_blocks_dense(
         problem, torch.as_tensor(cam9, **on_dev), torch.as_tensor(X0, **on_dev), "linear", 1.0
@@ -866,7 +875,7 @@ def lm_iteration_times(device, volume, iters=10):
     kernel, kernel, plain)."""
     from caliscope_tpu_torch.solvers import bundle
 
-    problem, cam9, X0 = dense_problem(device, volume)
+    problem, cam9, X0 = volume.ba_problem()  # the dense problem optimize builds
     config = bundle.BAConfig(max_iter=iters, ftol=0.0, xtol=0.0, gtol=0.0, solver="schur")
     times = {True: [], False: []}
     for fused in (False, True, True, False):
@@ -923,7 +932,7 @@ def profile_lm_iterations(device, volume, iters=3):
     filtered canonical problem, per LM iteration."""
     from caliscope_tpu_torch.solvers import bundle
 
-    problem, cam9, X0 = dense_problem(device, volume)
+    problem, cam9, X0 = volume.ba_problem()  # the dense problem optimize builds
     config = bundle.BAConfig(max_iter=iters, ftol=0.0, xtol=0.0, gtol=0.0, solver="schur")
     return profile_call(device, lambda: bundle.lm_solve(problem, cam9, X0, config), units=iters)
 
@@ -964,7 +973,7 @@ class PipelineRecorder:
     volume, arguments and result in `calls`."""
 
     def __init__(self):
-        self.marks, self.solves, self.calls, self.boot = [], [], [], None
+        self.marks, self.solves, self.calls, self.results, self.boot = [], [], [], [], None
 
     def progress(self, pct, label):
         self.marks.append((time.perf_counter(), label))
@@ -974,10 +983,20 @@ class PipelineRecorder:
 
     @contextmanager
     def patched(self):
+        from caliscope_tpu_torch.solvers import bundle
         from caliscope_tpu_torch.solvers import fused_schur as FS
         from caliscope_tpu_torch.volume import CaptureVolume
 
-        optimize, bootstrap = CaptureVolume.optimize, CaptureVolume.bootstrap.__func__
+        optimize, bootstrap, lm_solve = CaptureVolume.optimize, CaptureVolume.bootstrap.__func__, bundle.lm_solve
+
+        def recorded_lm_solve(problem, *args, **kwargs):
+            res = lm_solve(problem, *args, **kwargs)
+            self.results.append(dict(
+                layout="sparse" if isinstance(problem, bundle.BAProblem) else "dense", obs_minor=res.obs_minor,
+                solver=res.solver, n_constraints=problem.n_constraints, n_points=int(res.X.shape[0]),
+                cg_iterations=list(res.cg_iterations),
+            ))
+            return res
 
         def recorded_optimize(volume, *args, **kwargs):
             n0, t0 = FS.schur_s_rhs.launches, time.perf_counter()
@@ -996,10 +1015,12 @@ class PipelineRecorder:
             return self.boot
 
         CaptureVolume.optimize, CaptureVolume.bootstrap = recorded_optimize, classmethod(recorded_bootstrap)
+        bundle.lm_solve = recorded_lm_solve
         try:
             yield self
         finally:
             CaptureVolume.optimize, CaptureVolume.bootstrap = optimize, classmethod(bootstrap)
+            bundle.lm_solve = lm_solve
 
 
 def run_pipeline(device, scene_size, what):
@@ -1101,7 +1122,8 @@ def pnp_float64_check(device, ip, cameras):
 
 
 def pipeline_phase(device, smi_line):
-    """Returns the Schur kernel's launches on the pipeline path."""
+    """Returns (the Schur kernel's launches on the pipeline path, the run's
+    stage wall seconds, its scene and image points)."""
     import numpy as np
     import torch
 
@@ -1180,6 +1202,281 @@ def pipeline_phase(device, smi_line):
     log(f"pipeline {PIPE_SMALL}: the card within {gap_rot:.3e} deg and {gap_center * 1e3:.4f} mm of the CPU run")
     if len(gaps) != PIPE_SMALL[0] or not (gap_rot <= CARD_VS_CPU_ROTATION_DEG and gap_center <= CARD_VS_CPU_CENTER_M):
         raise AssertionError(f"pipeline: the card's 4 x 20 rig differs from the CPU's: {gaps}")
+    return launches, stages, scene, ip
+
+
+# ---------------------------------------------------------------------------
+# Constrained and sparse pipelines: the production ChArUco flow
+# ---------------------------------------------------------------------------
+
+
+def truss_set(scene, extra_static=()):
+    """The board truss of `scene`'s board (spacing 0.054 m, sigma 2 mm), as
+    the JAX package's board_constraints builds it, plus each static marker
+    of `extra_static` as its six corner distances, declared static."""
+    import numpy as np
+
+    from caliscope_tpu_torch.constraints import ConstraintSet, DistanceConstraint
+
+    cons = list(ConstraintSet._truss_constraints(scene.objects[0].points_local, 0.054, 0.002))
+    for obj in extra_static:
+        pts = obj.points_local
+        cons += [
+            DistanceConstraint(obj.object_id, i, obj.object_id, j, float(np.linalg.norm(pts[i] - pts[j])), 0.002)
+            for i in range(len(pts)) for j in range(i + 1, len(pts))
+        ]
+    return ConstraintSet(tuple(cons), frozenset(o.object_id for o in extra_static))
+
+
+def constrained_scenes(size, ring, ring_ip):
+    """{run: (scene, image points, constraint set)} for the three runs; (a)
+    reuses the unconstrained pipeline's default_ring_scene and its points."""
+    from caliscope_tpu_torch.constraints import ConstraintSet
+    from caliscope_tpu_torch.synthetic.factories import ring_with_static_markers, two_sided_ring_scene
+
+    two, ch = two_sided_ring_scene(*size)
+    static = ring_with_static_markers(*size, N_STATIC_MARKERS)
+    return {
+        "a_board_truss": (ring, ring_ip, truss_set(ring)),
+        "b_two_sided": (two, two.image_points_noisy(), ConstraintSet.from_charuco(ch)),
+        "c_static_markers": (static, static.image_points_noisy(), truss_set(static, static.objects[1:])),
+    }
+
+
+def ba_stage_costs(device, volume, args, kwargs):
+    """One BA stage (optimize(*args, **kwargs) on `volume`) repeated on the
+    card under torch.profiler and CUDA's sync debug mode: (device seconds,
+    GPU kernels, device->host synchronisations (a lower bound: the debug
+    mode does not see every synchronising operation), wall seconds with
+    the tools' overhead)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            volume.optimize(*args, **kwargs)
+            sync(device)
+            wall = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e6, len(kernels), syncs, wall
+
+
+def run_constrained(device, name, scene, ip, cs):
+    """One constrained pipeline run on the card with its gates. Returns
+    (recorder, run, record)."""
+    from caliscope_tpu_torch.pipelines import calibrate_extrinsics
+    from caliscope_tpu_torch.pipelines.calibrate_extrinsics import _count_active_cross_face_ties
+    from caliscope_tpu_torch.solvers import fused_schur as FS
+    from caliscope_tpu_torch.synthetic.camera_synthesizer import strip_extrinsics
+
+    rec = PipelineRecorder()
+    n0 = FS.schur_s_rhs.launches
+    with rec.patched():
+        sync(device)
+        t0 = time.perf_counter()
+        run = calibrate_extrinsics(ip, strip_extrinsics(scene.cameras), cs, device=device, progress=rec.progress)
+        sync(device)
+        seconds = time.perf_counter() - t0
+    launches = FS.schur_s_rhs.launches - n0
+    volume = run.capture_volume
+    n_cams = len(scene.cameras.cameras)
+    _aligned, errors = align_to_truth(volume, scene.cameras)
+    rigidity = volume.rigidity_report()
+    record = dict(
+        observations=len(ip), points=len(rec.boot.world_points), constraint_rows=rec.results[0]["n_constraints"],
+        seconds=round(seconds, 3), stage_seconds={k: round(v, 4) for k, v in rec.stage_seconds().items()},
+        final_rmse_px=volume.reprojection_report.overall_rmse,
+        max_rotation_deg=max(e[0] for e in errors.values()), max_center_mm=1e3 * max(e[1] for e in errors.values()),
+        rigidity_rmse_mm=rigidity.rmse_mm, rigidity_rows=rigidity.n_violations,
+        dropped_static_markers=list(run.dropped_static_markers), schur_kernel_launches=launches,
+    )
+    if name == "b_two_sided":
+        record["cross_face_ties_active"] = _count_active_cross_face_ties(rec.boot, cs)
+    log(f"constrained {name}: " + json.dumps(record))
+    for solve, res, stage in zip(rec.solves, rec.results, ("linear BA", "robust BA", "final BA")):
+        cg = res["cg_iterations"]
+        log(f"constrained {name} {stage}: {solve['seconds']:.3f} s, {solve['iterations']} LM iterations, "
+            f"layout {res['layout']}{' obs-minor' if res['obs_minor'] else ''}, solver {res['solver']}, "
+            f"{res['n_constraints']} constraint rows, P = {res['n_points']}, CG iterations per LM iteration {cg} "
+            f"(mean {sum(cg) / max(len(cg), 1):.1f}, max {max(cg, default=0)})")
+
+    posed_by_boot = len(rec.boot.camera_array.posed_cameras)
+    if posed_by_boot != n_cams or len(errors) != n_cams:
+        raise AssertionError(f"constrained {name}: {posed_by_boot} cameras posed by the bootstrap, {len(errors)} at the end, of {n_cams}")
+    if not record["final_rmse_px"] < MAX_FINAL_RMSE_PX:
+        raise AssertionError(f"constrained {name}: final RMSE {record['final_rmse_px']:.3f} px")
+    if not (record["max_rotation_deg"] <= MAX_PIPE_ROTATION_DEG and record["max_center_mm"] <= 1e3 * MAX_PIPE_CENTER_M):
+        raise AssertionError(f"constrained {name}: rig off the truth: {errors}")
+    if name == "c_static_markers":
+        if run.dropped_static_markers != ():
+            raise AssertionError(f"constrained {name}: static markers dropped: {run.dropped_static_markers}")
+        if not all(r["layout"] == "sparse" for r in rec.results):
+            raise AssertionError(f"constrained {name}: a BA stage did not take the sparse row layout: {rec.results}")
+    elif not (rigidity.n_violations > 0 and rigidity.rmse_mm < MAX_RIGIDITY_MM):
+        raise AssertionError(f"constrained {name}: rigidity {rigidity.rmse_mm:.3f} mm over {rigidity.n_violations} rows")
+    if name == "b_two_sided" and not record["cross_face_ties_active"] > 0:
+        raise AssertionError(f"constrained {name}: no cross-face tie active")
+    if launches != 0 or any(s["launches"] for s in rec.solves):
+        raise AssertionError(f"constrained {name}: the Schur kernel launched {launches} times; its gate is closed here")
+    if not all(r["n_constraints"] > 0 for r in rec.results):
+        raise AssertionError(f"constrained {name}: a BA stage ran without constraint rows: {rec.results}")
+    return rec, run, record
+
+
+def layout_times(device, volume):
+    """ms per LM iteration of `volume`'s final-BA problem (the sparse row
+    layout) in the row-major and obs-minor layouts at a fixed iteration
+    count, in turns (row-major, obs-minor, obs-minor, row-major, row-major,
+    obs-minor), with the CG iterations each ran. Returns ({layout: (best ms, CG iterations)},
+    whether 'auto' takes obs-minor)."""
+    from caliscope_tpu_torch.solvers import bundle
+
+    problem, cam9, X0 = volume.ba_problem()
+    if not isinstance(problem, bundle.BAProblem):
+        raise AssertionError("layout timing: the static-marker problem is not on the sparse row layout")
+    out = {}
+    for policy in ("never", "always", "always", "never", "never", "always"):
+        config = bundle.BAConfig(max_iter=LAYOUT_TIMING_ITERS, ftol=0.0, xtol=0.0, gtol=0.0, solver="schur", obs_minor=policy)
+        sync(device)
+        t0 = time.perf_counter()
+        res = bundle.lm_solve(problem, cam9, X0, config)
+        sync(device)
+        ms = 1e3 * (time.perf_counter() - t0) / res.n_iterations
+        key = "obs_minor" if policy == "always" else "row_major"
+        best = out.get(key)
+        if best is None or ms < best[0]:
+            out[key] = (ms, list(res.cg_iterations))
+    return out, bundle._use_obs_minor(problem, "auto")
+
+
+def solver_checks(device, volume):
+    """'cg' and 'schur_cg' on the canonical BA problem (the filtered
+    eight-camera volume of the BA slice) against the 'schur' optimum."""
+    from caliscope_tpu_torch.solvers import bundle
+
+    problem, cam9, X0 = volume.ba_problem()
+    out = {}
+    for solver in ("schur", "cg", "schur_cg"):
+        sync(device)
+        t0 = time.perf_counter()
+        res = bundle.lm_solve(problem, cam9, X0, bundle.BAConfig(solver=solver))
+        sync(device)
+        cg = res.cg_iterations
+        out[solver] = res.cost_final
+        log(f"canonical problem, solver {solver}: cost {res.cost_final:.9e} in {res.n_iterations} LM iterations, "
+            f"{time.perf_counter() - t0:.3f} s, CG iterations per LM iteration mean {sum(cg) / max(len(cg), 1):.1f} "
+            f"max {max(cg, default=0)}, fused kernel {res.fused_schur}")
+    for solver in ("cg", "schur_cg"):
+        gap = abs(out[solver] - out["schur"]) / abs(out["schur"])
+        if not gap <= SOLVER_COST_RTOL:
+            raise AssertionError(f"solver {solver}: final cost {gap:.2e} relative from the 'schur' optimum (limit {SOLVER_COST_RTOL})")
+    return out
+
+
+def repeat_bits(device, rec):
+    """The final BA stage of a constrained run again from its own input,
+    twice: do the two solves give the same bits?"""
+    import numpy as np
+
+    volume, args, kwargs, _out = rec.calls[-1]
+    a = volume.optimize(*args, **kwargs)
+    b = volume.optimize(*args, **kwargs)
+    same_points = np.array_equal(a.world_points.xyz, b.world_points.xyz)
+    cams = sorted(a.camera_array.posed_cameras)
+    gaps = [np.abs(a.camera_array.cameras[c].translation - b.camera_array.cameras[c].translation).max() for c in cams]
+    same_cams = all(
+        np.array_equal(a.camera_array.cameras[c].rotation, b.camera_array.cameras[c].rotation)
+        and np.array_equal(a.camera_array.cameras[c].translation, b.camera_array.cameras[c].translation)
+        for c in cams
+    )
+    return dict(
+        bit_identical=bool(same_points and same_cams),
+        max_point_gap_m=float(np.abs(a.world_points.xyz - b.world_points.xyz).max()),
+        max_translation_gap_m=float(max(gaps)),
+        costs=[a.optimization_status.final_cost, b.optimization_status.final_cost],
+    )
+
+
+def small_two_sided_card_vs_cpu(device):
+    """two_sided_ring_scene() (6 x 24) through the constrained pipeline on
+    the card and on the CPU: (max rotation gap deg, max center gap m)."""
+    import numpy as np
+    import torch
+
+    from caliscope_tpu_torch.constraints import ConstraintSet
+    from caliscope_tpu_torch.ops.lie import rotation_geodesic_angle_host
+    from caliscope_tpu_torch.pipelines import calibrate_extrinsics
+    from caliscope_tpu_torch.synthetic.camera_synthesizer import strip_extrinsics
+    from caliscope_tpu_torch.synthetic.factories import two_sided_ring_scene
+
+    scene, ch = two_sided_ring_scene()
+    ip, cs = scene.image_points_noisy(), ConstraintSet.from_charuco(ch)
+    aligned = {}
+    for dev in (device, torch.device("cpu")):
+        t0 = time.perf_counter()
+        run = calibrate_extrinsics(ip, strip_extrinsics(scene.cameras), cs, device=dev)
+        aligned[dev.type], errs = align_to_truth(run.capture_volume, scene.cameras)
+        log(f"constrained two_sided_ring_scene() on {dev.type}: {time.perf_counter() - t0:.2f} s, rotation error max "
+            f"{max(e[0] for e in errs.values()):.5f} deg, center error max {max(e[1] for e in errs.values()) * 1e3:.4f} mm, "
+            f"rigidity {run.capture_volume.rigidity_report().rmse_mm:.4f} mm")
+    gaps = []
+    for cid, g in aligned["cuda"].camera_array.posed_cameras.items():
+        c = aligned["cpu"].camera_array.cameras[cid]
+        gaps.append((float(np.degrees(rotation_geodesic_angle_host(g.rotation, c.rotation))),
+                     float(np.linalg.norm(g.rotation.T @ g.translation - c.rotation.T @ c.translation))))
+    if len(gaps) != len(scene.cameras.cameras):
+        raise AssertionError(f"constrained two-sided 6 x 24: {len(gaps)} cameras posed on the card")
+    return max(g[0] for g in gaps), max(g[1] for g in gaps)
+
+
+def constrained_phase(device, smi_line, unconstrained_stages, ring, ring_ip, canonical_volume):
+    """Returns the Schur kernel's launches over the three constrained runs
+    (0: its gate is closed for constrained and sparse problems)."""
+    from caliscope_tpu_torch.solvers import fused_schur as FS
+
+    t0 = time.perf_counter()
+    scenes = constrained_scenes(CONSTRAINED_SCENE, ring, ring_ip)
+    log(f"constrained: built the two-sided and static-marker {CONSTRAINED_SCENE} scenes on the host in "
+        f"{time.perf_counter() - t0:.2f} s")
+    FS.schur_s_rhs.launches = 0  # counts from here on are the constrained runs'
+    runs = {}
+    for name, (scene, ip, cs) in scenes.items():
+        runs[name] = run_constrained(device, name, scene, ip, cs)
+    launches = FS.schur_s_rhs.launches
+    log(f"constrained: schur_s_rhs launches {launches} over the three runs [{smi_line}]")
+
+    stages_a = runs["a_board_truss"][2]["stage_seconds"]
+    log("constrained (a) board truss beside the unconstrained pipeline, stage wall seconds: " + json.dumps(
+        {k: {"constrained": stages_a.get(k), "unconstrained": round(unconstrained_stages.get(k, float("nan")), 4)} for k in stages_a}
+    ))
+    for name, (rec, _run, _record) in runs.items():
+        volume, args, kwargs, _out = rec.calls[-1]
+        device_s, n_kernels, syncs, wall = ba_stage_costs(device, volume, args, kwargs)
+        log(f"constrained {name} final BA repeated under torch.profiler and sync debug mode: wall {wall:.3f} s, "
+            f"device time {device_s:.4f} s in {n_kernels} GPU kernels, {syncs} device->host synchronisations [{smi_line}]")
+
+    times, auto_minor = layout_times(device, runs["c_static_markers"][1].capture_volume)
+    for layout, (ms, cg) in times.items():
+        log(f"constrained (c) static-marker problem, {layout}: {ms:.3f} ms per LM iteration (best of 3 runs of "
+            f"{LAYOUT_TIMING_ITERS} each, the layouts in turns), CG iterations {cg} [{smi_line}]")
+    faster = min(times, key=lambda k: times[k][0])
+    log(f"constrained (c): the faster layout is {faster}; 'auto' takes {'obs_minor' if auto_minor else 'row_major'} on CUDA")
+
+    bits = repeat_bits(device, runs["b_two_sided"][0])
+    log("constrained (b) final BA solved twice from the same input: " + json.dumps(bits))
+    solver_checks(device, canonical_volume)
+    gap_rot, gap_center = small_two_sided_card_vs_cpu(device)
+    log(f"constrained two_sided_ring_scene(): the card within {gap_rot:.3e} deg and {gap_center * 1e3:.4f} mm of the CPU run")
+    if not (gap_rot <= CARD_VS_CPU_ROTATION_DEG and gap_center <= CARD_VS_CPU_CENTER_M):
+        raise AssertionError(f"constrained: the card's two-sided 6 x 24 rig differs from the CPU's by {gap_rot} deg, {gap_center} m")
     return launches
 
 
@@ -1248,10 +1545,15 @@ def main() -> int:
     prof = profile_lm_iterations(device, filtered)
     log("profile (per LM iteration) " + (json.dumps(prof) if prof else "not measured (the profiler recorded no device time)"))
     t0 = time.perf_counter()
-    pipe_launches = pipeline_phase(device, smi_line)
+    pipe_launches, pipe_stages, ring, ring_ip = pipeline_phase(device, smi_line)
     log(f"pipeline phase: {time.perf_counter() - t0:.2f} s")
-    entry["launches"] = launches + pipe_launches
-    entry["launches_by_path"] = {"ba_slice": launches, "pipeline": pipe_launches}
+    t0 = time.perf_counter()
+    constrained_launches = constrained_phase(device, smi_line, pipe_stages, ring, ring_ip, filtered)
+    log(f"constrained and sparse pipelines phase: {time.perf_counter() - t0:.2f} s")
+    entry["launches"] = launches + pipe_launches + constrained_launches
+    entry["launches_by_path"] = {
+        "ba_slice": launches, "pipeline": pipe_launches, "constrained_and_sparse_pipelines": constrained_launches,
+    }
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, the kernels' build included")
     log(json.dumps({"kernels": [entry, *detect_entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

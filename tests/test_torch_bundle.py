@@ -135,24 +135,38 @@ def test_schur_solve_equals_dense_solve_f64(rig, refine):
     r, w, Jc, Jp, _ = TB._masked_blocks_dense(tp, cam9, X, "linear", 1.0)
     g_c, g_p, d_c = TB._gradient_and_diag_dense(w, r, Jc, Jp)
     lam = torch.tensor(1e-3, dtype=torch.float64)
-    schur = TB._solve_schur(tp, w, Jc, Jp, g_c, g_p, d_c, lam, fused=False)
-    dense = TB._solve_dense(tp, w, Jc, Jp, g_c, g_p, d_c, lam)
+    plan = TB._make_plan(tp, X.shape[0], torch.float64)
+    schur = TB._solve_schur(tp, plan, w, Jc, Jp, None, None, g_c, g_p, d_c, None, lam, 1e-6, 200, fused=False)[:2]
+    dense = TB._solve_dense(tp, plan, w, Jc, Jp, None, None, g_c, g_p, d_c, None, lam)
     for a, b in zip(schur, dense):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-7, atol=1e-10)
 
 
 def test_unported_paths_raise(rig):
+    """The 'cg' and 'schur_cg' solvers, constraint rows and the sparse row
+    layout are ported: each solves the rig to the dense Schur optimum.
+    What is not a problem, and the fused kernel where it cannot run (CPU
+    float64; a constrained or sparse problem), still raise."""
     jp, tp = _problems(rig, jnp.float64, torch.float64, False)
     cam9_0, X0 = rig[6], rig[7]
+    ref = TB.lm_solve(tp, cam9_0, X0, TB.BAConfig(solver="schur"))
     for solver in ("cg", "schur_cg"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TB.lm_solve(tp, cam9_0, X0, TB.BAConfig(solver=solver))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TB.make_dense_problem(*rig[:6], n_points=4, constraints=(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        got = TB.lm_solve(tp, cam9_0, X0, TB.BAConfig(solver=solver))
+        assert got.solver == solver and len(got.cg_iterations) == got.n_iterations
+        np.testing.assert_allclose(got.cost_final, ref.cost_final, rtol=1e-6)
+    con = (np.zeros((1, 4)), np.eye(4)[:1], np.ones((1, 4)), np.eye(4)[:1], np.array([0.05]), np.array([10.0]))
+    constrained = TB.make_dense_problem(*rig[:6], n_points=X0.shape[0], constraints=con, device="cpu")
+    assert constrained.n_constraints == 1
+    sparse = TB.make_problem(*rig[:6], device="cpu")
+    got = TB.lm_solve(sparse, cam9_0, X0, TB.BAConfig(solver="schur"))
+    np.testing.assert_allclose(got.cost_final, ref.cost_final, rtol=1e-9)
+    with pytest.raises(TypeError, match="BAProblem"):
         TB.lm_solve(object(), cam9_0, X0)
     with pytest.raises(TypeError, match="float32"):
         TB.lm_solve(tp, cam9_0, X0, TB.BAConfig(solver="schur"), fused_schur=True)
+    for problem in (constrained, sparse):
+        with pytest.raises(ValueError, match="fused Schur kernel"):
+            TB.lm_solve(problem, cam9_0, X0, TB.BAConfig(solver="schur"), fused_schur=True)
 
 
 def test_bound_warnings_match_jax():

@@ -160,10 +160,27 @@ def test_entry_points_need_cuda_unless_cpu_is_named(boot_volume):
 
 
 def test_constraints_and_sparse_layout_are_not_ported(boot_volume):
+    """Both are ported: a volume takes a constraint set (the board's
+    neighbour ties) and its optimize reaches the JAX package's on the same
+    state; make_problem builds the sparse row layout."""
+    import dataclasses
+
+    from caliscope_tpu.constraints import ConstraintSet as JaxConstraintSet
+    from caliscope_tpu.constraints import DistanceConstraint
+
     cams, ip, wp = _export(boot_volume)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchVolume(cams, ip, wp, constraints=object(), device="cpu")
+    ties = JaxConstraintSet(
+        tuple(DistanceConstraint(0, k, 0, k + 1, 0.054, 0.002) for k in range(5)), frozenset()
+    )
+    jax_volume = JaxVolume(boot_volume.camera_array, boot_volume.image_points, boot_volume.world_points, constraints=ties)
+    want = jax_volume.optimize()
+    volume = TorchVolume(cams, ip, wp, constraints=convert.constraint_set(dataclasses.asdict(ties)), device="cpu")
+    got = volume.optimize()
+    assert got.constraints == volume.constraints and got.rigidity_report().n_violations > 0
+    np.testing.assert_allclose(got.optimization_status.final_cost, want.optimization_status.final_cost, rtol=COST_RTOL)
+    np.testing.assert_allclose(got.world_points.xyz, want.world_points.xyz, atol=GEOM_ATOL)
     from caliscope_tpu_torch.solvers.bundle import make_problem
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_problem()
+    K = np.tile(np.eye(3), (2, 1, 1))
+    problem = make_problem([1, 0], [0, 0], np.zeros((2, 2)), K, np.zeros((2, 5)), [False, False], device="cpu")
+    assert problem.cam_idx.tolist() == [0, 1] and problem.n_constraints == 0
