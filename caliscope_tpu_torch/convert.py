@@ -13,7 +13,8 @@ Exporting from caliscope_tpu (in a program that has both packages):
             for cid, c in jax_cameras.cameras.items()}
     ip = {name: getattr(jax_points, name) for name in IMAGE_POINT_FIELDS}
     wp = {name: getattr(jax_world, name) for name in WORLD_POINT_FIELDS}
-    board = dataclasses.asdict(jax_charuco)
+    cam = dataclasses.asdict(jax_camera_data)
+    board = dataclasses.asdict(jax_charuco)  # or a Chessboard, an ArucoMarkerSet
     pairs = {key: {f: getattr(sp, f) for f in STEREO_PAIR_FIELDS}
              for key, sp in jax_network.pairs.items()}
     constraints = dataclasses.asdict(jax_constraint_set)
@@ -35,7 +36,9 @@ from caliscope_tpu_torch.constraints import CentroidDistanceConstraint, Constrai
 from caliscope_tpu_torch.device import resolve_device, resolve_dtype
 from caliscope_tpu_torch.observations import ImagePoints, WorldPoints
 from caliscope_tpu_torch.solvers.pose_network import PairedPoseNetwork, StereoPair
+from caliscope_tpu_torch.targets.aruco import ArucoMarker, ArucoMarkerSet, DistanceLink, MirrorPair
 from caliscope_tpu_torch.targets.charuco import Charuco
+from caliscope_tpu_torch.targets.chessboard import Chessboard
 
 CAMERA_FIELDS = ("matrix", "distortions", "rotation", "translation", "size", "fisheye")
 IMAGE_POINT_FIELDS = ("sync_index", "cam_id", "object_id", "keypoint_id", "img_xy", "obj_loc", "frame_time")
@@ -45,6 +48,11 @@ BA_PROBLEM_FIELDS = (
     "cam_idx", "pt_idx", "uv", "obs_mask", "K0", "dist0", "fisheye", "inv_fx", "param_free",
     "con_pa_idx", "con_pa_w", "con_pb_idx", "con_pb_w", "con_target", "con_weight",
 )
+CAMERA_DATA_FIELDS = (
+    "cam_id", "size", "rotation_count", "error", "matrix", "distortions", "exposure", "grid_count", "ignore",
+    "translation", "rotation", "fisheye",
+)
+CHESSBOARD_FIELDS = ("rows", "columns", "square_size_m")
 CHARUCO_FIELDS = (
     "rows", "columns", "square_size_m", "aruco_scale", "dictionary", "legacy_pattern", "thickness_m", "inverted",
 )
@@ -75,6 +83,18 @@ def camera_array(cameras: Mapping[int, Mapping[str, Any]]) -> CameraArray:
     return CameraArray(out)
 
 
+def camera_data(fields: Mapping[str, Any]) -> CameraData:
+    """One camera as `dataclasses.asdict` gives it (CAMERA_DATA_FIELDS;
+    cam_id and size required) -> the port's CameraData."""
+    unknown = set(fields) - set(CAMERA_DATA_FIELDS)
+    if unknown:
+        raise ValueError(f"camera_data: unknown fields {sorted(unknown)}")
+    arrays = {"matrix", "distortions", "rotation", "translation"}
+    kw = {k: (_copy(v) if k in arrays else v) for k, v in fields.items()}
+    kw["size"] = (int(fields["size"][0]), int(fields["size"][1]))
+    return CameraData(**kw)
+
+
 def image_points(columns: Mapping[str, Any]) -> ImagePoints:
     """Columns named as IMAGE_POINT_FIELDS (obj_loc and frame_time optional)."""
     return ImagePoints(**{k: _copy(columns.get(k)) for k in IMAGE_POINT_FIELDS})
@@ -92,6 +112,26 @@ def charuco(fields: Mapping[str, Any]) -> Charuco:
     if unknown:
         raise ValueError(f"charuco: unknown fields {sorted(unknown)}")
     return Charuco(**dict(fields))
+
+
+def chessboard(fields: Mapping[str, Any]) -> Chessboard:
+    """The board's dataclass fields (CHESSBOARD_FIELDS) -> the port's Chessboard."""
+    unknown = set(fields) - set(CHESSBOARD_FIELDS)
+    if unknown:
+        raise ValueError(f"chessboard: unknown fields {sorted(unknown)}")
+    return Chessboard(**dict(fields))
+
+
+def aruco_marker_set(fields: Mapping[str, Any]) -> ArucoMarkerSet:
+    """An ArucoMarkerSet as `dataclasses.asdict` gives it (markers, links and
+    mirror pairs as dicts of their fields) -> the port's ArucoMarkerSet, in
+    the same order."""
+    return ArucoMarkerSet(
+        dictionary=fields["dictionary"],
+        markers={int(k): ArucoMarker(**m) for k, m in fields["markers"].items()},
+        links=tuple(DistanceLink(**d) for d in fields.get("links", ())),
+        mirror_pairs=tuple(MirrorPair(**m) for m in fields.get("mirror_pairs", ())),
+    )
 
 
 def stereo_pairs(pairs: Mapping[tuple[int, int], Mapping[str, Any]]) -> dict[tuple[int, int], StereoPair]:

@@ -14,12 +14,17 @@ For `schur_s_rhs` (C = 8, P = 40,960, float32), `connected_components`
 ((8, 720, 1280) bool at 45 % foreground, 4 rounds), `corner_response`
 ((8, 720, 1280) float32) and `extract_windows` at both callers' shapes (the
 int32 patch atlas (8, 1356, 1280), K = 64, win = 96; the edge-padded float32
-frames (8, 748, 1308), K = 256, win = 28) it prints one JSON line with the
-wrapper's time per call by CUDA events (median of 5 rounds of 20 warm
-calls), the host's time to issue a call (`host_ms`: perf_counter over 50
+frames (8, 748, 1308), K = 256, win = 28), and at the one-frame shapes of
+the ArUco and chessboard trackers (`connected_components` and
+`corner_response` on (1, 720, 1280), `extract_windows` on (1, 748, 1308),
+K = 512, win = 28: the chessboard's corner windows) it prints one JSON line
+with the wrapper's time per call by CUDA events (median of 5 rounds of 20
+warm calls), the host's time to issue a call (`host_ms`: perf_counter over 50
 calls not waited for) and, from torch.profiler over 10 warm calls, the
 device time per launch of every GPU kernel the wrapper launched, by kernel
-name, with its launches per call (1 for each kernel here); and what ptxas
+name, with its launches per call (1 for each kernel here); for the window
+gathers also the one-call PyTorch yardstick (`library_ms`: the advanced-
+indexing gather on prebuilt indices, by CUDA events); and what ptxas
 reported for the kernels this process built (registers, spills).
 """
 
@@ -133,8 +138,18 @@ def main() -> int:
         seeds = [rng.integers(0, n - win + 1, size=(B, K)).astype(np.int32) for n in (Hp, Wp)]
         return (src, *(torch.from_numpy(a).to(dev) for a in seeds), win)
 
+    def gather(src, yi, xi, win):
+        """The one-call yardstick: frames[b, y + ar, x + ar] on prebuilt indices."""
+        ar = torch.arange(win, device=dev)
+        bi = torch.arange(src.shape[0], device=dev)[:, None, None, None]
+        yy = yi.long()[:, :, None, None] + ar[:, None]
+        xx = xi.long()[:, :, None, None] + ar[None, :]
+        return lambda: src[bi, yy, xx]
+
     atlas = window_args(torch.from_numpy(rng.integers(0, 2**31 - 1, size=(8, 1356, 1280)).astype(np.int32)).to(dev), 64, 96)
     padded = window_args(torch.from_numpy(rng.uniform(0, 255, size=(8, 748, 1308)).astype(np.float32)).to(dev), 256, 28)
+    chess = window_args(padded[0][:1].contiguous(), 512, 28)
+    mask1, frame1 = mask[:1].contiguous(), frames[:1].contiguous()
     out = {"label": args.label, "package": str(Path(FS.__file__).resolve().parents[1]), "card": smi}
     for name, fn in (
         ("schur_s_rhs", lambda: FS.schur_s_rhs(*blocks)),
@@ -142,8 +157,13 @@ def main() -> int:
         ("corner_response", lambda: CK.corner_response(frames)),
         ("extract_windows_atlas", lambda: CK.extract_windows(*atlas)),
         ("extract_windows_corners", lambda: CK.extract_windows(*padded)),
+        ("connected_components_b1", lambda: CCL.connected_components(mask1, 4)),
+        ("corner_response_b1", lambda: CK.corner_response(frame1)),
+        ("extract_windows_chessboard_k512", lambda: CK.extract_windows(*chess)),
     ):
         out[name] = {"ms": event_ms(fn), "host_ms": host_ms(fn), "gpu_kernels": device_ms_by_kernel(fn)}
+    for name, args_ in (("extract_windows_atlas", atlas), ("extract_windows_corners", padded), ("extract_windows_chessboard_k512", chess)):
+        out[name]["library_ms"] = event_ms(gather(*args_))
     from caliscope_tpu_torch import _cuda_build
 
     out["ptxas"] = {

@@ -1,6 +1,7 @@
 """Use-case pipelines: the production calibration flows.
 
-Port of caliscope_tpu/pipelines/ (the extrinsic pipeline so far).
+Port of caliscope_tpu/pipelines/ (the extrinsic and intrinsic pipelines so
+far; process_recording waits for the media layer, ROADMAP.md item 25).
 """
 
 from caliscope_tpu_torch.pipelines.calibrate_extrinsics import (  # noqa: F401
@@ -8,4 +9,11 @@ from caliscope_tpu_torch.pipelines.calibrate_extrinsics import (  # noqa: F401
     CalibrationRun,
     calibrate_extrinsics,
     refresh_run,
+)
+from caliscope_tpu_torch.pipelines.calibrate_intrinsics import (  # noqa: F401
+    IntrinsicCalibrationOutput,
+    IntrinsicCalibrationReport,
+    IntrinsicCalibrationResult,
+    calibrate_intrinsics,
+    run_intrinsic_calibration,
 )

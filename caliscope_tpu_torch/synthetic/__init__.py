@@ -1,12 +1,12 @@
 """Synthetic ground-truth scene engine — the test backbone.
 
 Port of caliscope_tpu/synthetic/ (SE3Pose, Trajectory, CalibrationObject,
-CameraSynthesizer, SyntheticScene, scene factories, fault injection).
+CameraSynthesizer, SyntheticScene, scene factories, fault injection, the
+fixture repository).
 Scenes fabricate exact ground truth so the solver stack is tested end to
 end deterministically. numpy throughout; projection through the port's
 CameraData. Not ported yet: explorer.py (GUI signals and the task manager,
-ROADMAP.md queue 1 item 25) and fixture_repository.py (scenes saved as
-files, item 14, with the volume's save/load).
+ROADMAP.md queue 1 item 25).
 """
 
 from caliscope_tpu_torch.synthetic.se3 import SE3Pose  # noqa: F401

@@ -8,7 +8,8 @@ buckets the observation and point counts and picks the dense point-minor
 layout exactly as the JAX package does, then runs the port's LM solve
 (solvers/bundle.py) on the volume's device; reports and filters reuse the
 same reprojection code. Anchoring by a similarity transform
-(`align_to_object`, `rotate`, `translate`, `centered`) runs on the host.
+(`align_to_object`, `scaled`, `oriented`, `grounded`, `rotate`,
+`translate`, `centered`) and the volumetric-scale QA run on the host.
 
 A volume may carry a `ConstraintSet` (constraints.py): its static objects
 join their observations onto one world point per keypoint
@@ -21,14 +22,12 @@ or a grid under a third full send `optimize` to the sparse row layout.
 
 A volume runs on `device` (CUDA unless the caller passes another, e.g.
 "cpu") in `dtype` (float32 on CUDA, float64 on the CPU unless given).
-
-Not ported yet: `scaled`, `oriented`, `grounded` and volumetric-scale QA
-(ROADMAP.md queue 1 item 14).
 """
 
 from __future__ import annotations
 
 import logging
+import warnings
 from dataclasses import dataclass, field
 from functools import cached_property
 from pathlib import Path
@@ -44,7 +43,15 @@ from caliscope_tpu_torch.exceptions import CalibrationError
 from caliscope_tpu_torch.observations import STATIC_SYNC_INDEX, ImagePoints, WorldPoints
 from caliscope_tpu_torch.ops.similarity import SimilarityParams, apply_similarity_to_extrinsics, umeyama
 from caliscope_tpu_torch.reports import OptimizationStatus, RawErrors, ReprojectionReport
-from caliscope_tpu_torch.scale import compute_depth_ratios
+from caliscope_tpu_torch.scale import (
+    CameraDistance,
+    DepthObservation,
+    SegmentLength,
+    VolumetricScaleReport,
+    compute_depth_ratios,
+    compute_frame_scale_error,
+    world_basis_from_up_and_forward,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -446,9 +453,40 @@ class CaptureVolume:
             _optimization_status=status,
         )
 
-    # ---- rigidity QA --------------------------------------------------------
+    # ---- rigidity / scale QA ------------------------------------------------
     def rigidity_report(self) -> RigidityReport:
         return rigidity_report(self.constraints, self.world_points)
+
+    def compute_volumetric_scale_accuracy(self) -> VolumetricScaleReport:
+        """Per-(frame, object) pairwise-distance accuracy vs obj_loc ground
+        truth (reference capture_volume.py:755-831)."""
+        ip = self.image_points
+        has_obj = np.isfinite(ip.obj_loc).all(axis=1)
+        matched = self.img_to_obj_map >= 0
+        usable = has_obj & matched
+        if not usable.any():
+            return VolumetricScaleReport.empty()
+        frame_errors = []
+        keys = np.stack([ip.sync_index[usable], ip.object_id[usable]], axis=1)
+        rows = np.where(usable)[0]
+        for s, o in np.unique(keys, axis=0):
+            sel = rows[(keys[:, 0] == s) & (keys[:, 1] == o)]
+            kp = ip.keypoint_id[sel]
+            uniq_kp, first = np.unique(kp, return_index=True)
+            if len(uniq_kp) < 2:
+                continue
+            obj_pts = ip.obj_loc[sel][first]
+            world_rows = self.img_to_obj_map[sel][first]
+            world_pts = self.world_points.xyz[world_rows]
+            n_cams = len(np.unique(ip.cam_id[sel]))
+            try:
+                frame_errors.append(compute_frame_scale_error(world_pts, obj_pts, int(s), int(o), n_cams))
+            except ValueError as e:
+                logger.debug(f"Skipping sync {s} object {o}: {e}")
+        return VolumetricScaleReport(
+            frame_errors=tuple(frame_errors),
+            static_object_ids=self.constraints.static_object_ids if self.constraints else frozenset(),
+        )
 
     def depth_ratios(self) -> dict[int, float]:
         return compute_depth_ratios(self.camera_array, self.world_points)
@@ -633,11 +671,172 @@ class CaptureVolume:
     def translate(self, x: float = 0.0, y: float = 0.0, z: float = 0.0) -> "CaptureVolume":
         return self._apply_similarity(SimilarityParams(1.0, np.eye(3), np.array([x, y, z], float)))
 
+    def _anchor_cam_id(self) -> int:
+        posed = self.camera_array.posed_cameras
+        if not posed:
+            raise ValueError("Anchoring needs at least one posed camera, but none carry extrinsics yet")
+        return min(posed)
+
     def _camera_center(self, cam_id: int) -> np.ndarray:
         cam = self.camera_array.cameras[cam_id]
         if cam.rotation is None or cam.translation is None:
             raise ValueError(f"Camera {cam_id} carries no extrinsics, so its optical center is undefined")
         return -cam.rotation.T @ cam.translation
+
+    def scaled(self, *cues: CameraDistance | SegmentLength | DepthObservation) -> "CaptureVolume":
+        """Set the volume's metric scale from one or more measurement cues.
+
+        Each usable cue contributes a pair (length in current solver units,
+        length in meters) plus a meter-space uncertainty; the global scale is
+        the weighted least-squares solution of ``meters ~= scale *
+        solver_units`` with weights 1/sigma^2. Depth cues that cannot be tied
+        to a unique world point are dropped with a warning; cue pairs whose
+        individually-implied scales sit more than two combined sigmas apart
+        trigger a disagreement warning.
+        """
+        if not cues:
+            raise ValueError("scaled() needs at least one metric cue.")
+        units, meters, sigmas = [], [], []
+        dropped: dict[str, int] = {}
+        n_depth_cues = 0
+        for cue in cues:
+            if isinstance(cue, CameraDistance):
+                evidence = self._measure_camera_gap(cue)
+            elif isinstance(cue, SegmentLength):
+                evidence = self._measure_segment(cue)
+            elif isinstance(cue, DepthObservation):
+                n_depth_cues += 1
+                evidence = self._measure_depth(cue)
+                if isinstance(evidence, str):
+                    dropped[evidence] = dropped.get(evidence, 0) + 1
+                    continue
+            else:
+                raise TypeError(f"Not a scale cue: {type(cue).__name__}")
+            units.append(evidence[0])
+            meters.append(evidence[1])
+            sigmas.append(evidence[2])
+        if dropped:
+            detail = "; ".join(f"{n}x {why}" for why, n in sorted(dropped.items()))
+            warnings.warn(
+                f"Ignored {sum(dropped.values())} of {n_depth_cues} depth cues ({detail}).",
+                stacklevel=2,
+            )
+        if not units:
+            raise ValueError(f"None of the {len(cues)} scale cues could be measured in this volume.")
+        u, m, sg = np.asarray(units), np.asarray(meters), np.asarray(sigmas)
+        w = 1.0 / np.square(sg)
+        scale = float((w * m * u).sum() / (w * u * u).sum())
+        self._warn_on_scale_disagreement(u, m, sg)
+        return self._apply_similarity(SimilarityParams(scale, np.eye(3), np.zeros(3)))
+
+    @staticmethod
+    def _warn_on_scale_disagreement(u: np.ndarray, m: np.ndarray, sg: np.ndarray) -> None:
+        """Pairwise consistency check on the per-cue implied scales."""
+        if len(u) < 2:
+            return
+        implied = m / u
+        implied_sigma = sg / u
+        ii, jj = np.triu_indices(len(u), k=1)
+        tolerance = 2.0 * np.hypot(implied_sigma[ii], implied_sigma[jj])
+        conflicting = np.abs(implied[ii] - implied[jj]) > tolerance
+        for i, j, tol in zip(ii[conflicting], jj[conflicting], tolerance[conflicting]):
+            warnings.warn(
+                f"Scale cues {i} and {j} disagree: they imply {implied[i]:.6g} vs "
+                f"{implied[j]:.6g}, a gap beyond the combined 2-sigma tolerance "
+                f"of {tol:.6g}.",
+                stacklevel=3,
+            )
+
+    def _measure_camera_gap(self, cue: CameraDistance) -> tuple[float, float, float]:
+        posed = self.camera_array.posed_cameras
+        unposed = [cid for cid in (cue.cam_a, cue.cam_b) if cid not in posed]
+        if unposed:
+            raise ValueError(f"CameraDistance cue needs posed cameras, but {unposed} have no pose.")
+        gap = float(np.linalg.norm(self._camera_center(cue.cam_a) - self._camera_center(cue.cam_b)))
+        if gap == 0.0:
+            raise ValueError(
+                f"Cameras {cue.cam_a} and {cue.cam_b} share a center; the distance cue carries no scale information."
+            )
+        return gap, float(cue.meters), float(cue.sigma_m)
+
+    def _measure_segment(self, cue: SegmentLength) -> tuple[float, float, float]:
+        """Median triangulated length of the (kp_a, kp_b) segment over every
+        (sync, object) group where both endpoints exist."""
+        wp = self.world_points
+        is_a = wp.keypoint_id == cue.keypoint_id_a
+        is_b = wp.keypoint_id == cue.keypoint_id_b
+        group = np.stack([wp.sync_index, wp.object_id], axis=1)
+        _, group_id = np.unique(group, axis=0, return_inverse=True)
+        n_groups = int(group_id.max()) + 1 if len(group_id) else 0
+        a_row = np.full(n_groups, -1)
+        b_row = np.full(n_groups, -1)
+        a_row[group_id[is_a]] = np.where(is_a)[0]
+        b_row[group_id[is_b]] = np.where(is_b)[0]
+        both = (a_row >= 0) & (b_row >= 0)
+        if not both.any():
+            raise ValueError(
+                f"SegmentLength cue: keypoints {cue.keypoint_id_a} and "
+                f"{cue.keypoint_id_b} are never triangulated together in any frame."
+            )
+        lengths = np.linalg.norm(wp.xyz[a_row[both]] - wp.xyz[b_row[both]], axis=1)
+        return float(np.median(lengths)), float(cue.meters), float(cue.sigma_m)
+
+    def _measure_depth(self, cue: DepthObservation) -> tuple[float, float, float] | str:
+        """Evidence triple, or a human-readable reason the cue is unusable."""
+        cam = self.camera_array.cameras.get(cue.cam_id)
+        if cam is None or cam.rotation is None or cam.translation is None:
+            return "camera has no pose"
+        wp = self.world_points
+        rows = np.flatnonzero((wp.sync_index == cue.sync_index) & (wp.keypoint_id == cue.keypoint_id))
+        if len(rows) == 0:
+            return "keypoint not triangulated at that sync index"
+        if len(rows) > 1:
+            return "keypoint matches several world points"
+        z_cam = float((cam.rotation @ wp.xyz[rows[0]] + cam.translation)[2])
+        if z_cam <= 0.0:
+            return "point sits behind the camera"
+        return z_cam, float(cue.depth_m), float(cue.sigma_m)
+
+    def oriented(self, up: dict[int, np.ndarray]) -> "CaptureVolume":
+        """Rotate so the consensus per-camera vertical becomes +Z; yaw fixed
+        by the anchor camera's optical axis -> +Y."""
+        if not up:
+            raise ValueError("oriented() needs an up vector for at least one camera.")
+        cam_ids = list(up.keys())
+        for cid in cam_ids:
+            cam = self.camera_array.cameras.get(cid)
+            if cam is None or cam.rotation is None:
+                raise ValueError(f"oriented(): camera {cid} has no pose to rotate an up vector through.")
+        # rows: each camera's claimed vertical, expressed in world coordinates
+        verticals = np.stack(
+            [self.camera_array.cameras[cid].rotation.T @ np.asarray(v, float) for cid, v in up.items()]
+        )
+        pooled = verticals.mean(axis=0)
+        pooled_len = float(np.linalg.norm(pooled))
+        if pooled_len < 1e-9:
+            raise ValueError("The per-camera verticals cancel out; no usable consensus up direction.")
+        up_world = pooled / pooled_len
+        unit = verticals / np.linalg.norm(verticals, axis=1, keepdims=True)
+        spread_deg = np.degrees(np.arccos(np.clip(unit @ up_world, -1.0, 1.0)))
+        logger.info(
+            "Per-camera deviation from the pooled vertical (deg): %s",
+            {cid: round(float(d), 2) for cid, d in zip(cam_ids, spread_deg)},
+        )
+        anchor = self.camera_array.cameras[self._anchor_cam_id()]
+        gaze = anchor.rotation.T @ np.array([0.0, 0.0, 1.0])
+        basis = world_basis_from_up_and_forward(up_world, gaze)
+        return self._apply_similarity(SimilarityParams(1.0, basis, np.zeros(3)))
+
+    def grounded(
+        self, mode: Literal["lowest_point"] = "lowest_point", *, lowest_point_height_m: float = 0.0
+    ) -> "CaptureVolume":
+        """Floor at Z=0 (robust 1st-percentile order statistic of world Z) and
+        XY origin under the anchor camera. Call after oriented()."""
+        if mode != "lowest_point":
+            raise ValueError(f"Unsupported grounding mode {mode!r}; 'lowest_point' is the only strategy implemented")
+        min_z = float(np.percentile(self.world_points.xyz[:, 2], 1.0, method="lower"))
+        center = self._camera_center(self._anchor_cam_id())
+        return self.translate(x=-center[0], y=-center[1], z=-min_z + lowest_point_height_m)
 
     def centered(self) -> "CaptureVolume":
         """XY origin at the centroid of posed camera centers; Z untouched."""

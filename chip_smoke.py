@@ -61,7 +61,26 @@ on any failed check. Phases:
    against the 'schur' optimum; whether a repeated constrained solve gives
    the same bits; and a small two-sided run on the card against the port's
    CPU run.
-8. A `kernels` JSON line, then the last line
+8. Intrinsics and the other trackers: (a) run_intrinsic_calibration on the
+   card for 8 cameras of 1920x1080 (six Brown, two fisheye) with 600
+   candidate frames each, gated on the JAX suite's bounds against the truth
+   (1 % focal, 8 px principal point, k1, RMSE < 1 px), on the (default,
+   float64) solve against a float32 one and, for one camera, on the card
+   against the port's CPU run; the solves' own seconds; one camera's J in
+   closed form against torch.func.jacfwd, timed; (a') an
+   orientation-starved camera whose selection falls back to all 120
+   candidates (F, J's bytes, peak memory, seconds); (b) 48 rendered
+   1280x720 ChArUco frames through CharucoTracker on the card and then
+   run_intrinsic_calibration, gated on K_TRUE and on the kernels' launches
+   per dispatch; (c) ChessboardTracker and ArucoTracker, one 1280x720 frame
+   a call, 16 frames each, gated on complete grids / every id, corner
+   accuracy, the card against the CPU, the launches per frame and, at the
+   recipe's full tilt, the JAX package's corners a view; kernel 4 held to
+   its plain version (torch.equal) at every shape (b) and (c) gave it (the
+   calls recorded as they launch); and kernels 2-4 against their plain
+   versions at the trackers' shapes (B = 1; K = 512, win 28), timed there.
+9. A `kernels` JSON line (each detection kernel with its launches on every
+   path, `launches_by_path`), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each slice's launch counts are set to 0 just before it is driven and read
@@ -145,6 +164,55 @@ MAX_RIGIDITY_MM = 2.0
 SOLVER_COST_RTOL = 1e-5
 # LM iterations timed per layout on the static-marker problem
 LAYOUT_TIMING_ITERS = 5
+
+# The intrinsic phase. (a) Intrinsics from observations: 8 cameras of
+# 1920x1080 — six Brown (default_ring_scene's webcam truth, f = 1400 px) and
+# two fisheye (tests/test_intrinsics.py's fisheye truth scaled to 1080p) —
+# each with 600 candidate frames (20 s at 30 fps of one intrinsic
+# recording) of a 5x7 inner-corner board at 54 mm posed by the JAX suite's
+# recipe (random axis, tilt 0.1-0.9 rad, lateral offsets, depth 0.4-1.2 m;
+# corners outside the frame dropped), 0.5 px noise, numpy seed INTR_SEED;
+# run_intrinsic_calibration at its defaults (30 target frames, soft_l1 at
+# 1 px). Gates: the JAX suite's bounds (tests/test_intrinsics.py:87-92,
+# 149-150).
+INTR_WH = (1920, 1080)
+INTR_CANDIDATES = 600
+INTR_N_BROWN, INTR_N_FISHEYE = 6, 2
+INTR_FISHEYE_K = ((930.0, 0.0, 960.0), (0.0, 927.0, 540.0), (0.0, 0.0, 1.0))  # (620, 618, 640, 360) x 1.5
+INTR_FISHEYE_DIST = (0.08, -0.02, 0.005, -0.001)
+INTR_NOISE_PX = 0.5
+INTR_SEED = 17
+FOCAL_RTOL, PP_ATOL_PX, MAX_INTR_RMSE_PX = 0.01, 8.0, 1.0
+K1_ATOL = {False: 0.02, True: 0.03}  # Brown, fisheye
+# The solve runs in float64 by default, on the card too (float32 never
+# meets the LM's stop test and runs to its cap; solvers/intrinsics.py). A
+# float32 solve of the same input against it, bound stated before the
+# first run on the card: K's entries within 1e-3 relative, distortion
+# within 5e-3; and one camera's card result against the port's CPU run to
+# the same bounds.
+F32_K_RTOL, F32_DIST_ATOL = 1e-3, 5e-3
+# (a') an orientation-starved camera: 120 candidates all tilted about the
+# board's x axis (0.3-0.6 rad), two orientation bins of the selector's
+# eight (lens distortion and lateral offsets spread one tilt direction over
+# two), so the selection falls back to every candidate.
+STARVED_CANDIDATES = 120
+# (b) intrinsics from 48 rendered 1280x720 ChArUco frames through the
+# pinhole K_TRUE (no distortion), posed by the same recipe.
+FRAMES_FOR_INTRINSICS = 48
+K_TRUE = ((1000.0, 0.0, 642.0), (0.0, 995.0, 358.0), (0.0, 0.0, 1.0))
+# (c) the other trackers, one 1280x720 frame a call: a 6x8-square
+# chessboard (60 px squares) and three DICT_4X4_50 markers, 16 frames each,
+# posed through K_TRUE. The chessboard views keep to a tilt of 0.2 rad: the
+# reference's lattice ordering completes the grid under moderate
+# perspective only (ROADMAP.md section 3). The recipe's full tilt range is
+# run too, held to the CPU view for view and to the corners the JAX
+# package's tracker gives on the same views (CHESS_WIDE_CORNERS, held to it
+# in tests/test_torch_trackers_other.py).
+TRACKER_FRAMES = 16
+CHESS_TILT = (0.0, 0.2)
+CHESS_WIDE_SEED = INTR_SEED + 4
+CHESS_WIDE_CORNERS = (35, 35, 35, 0, 0, 35, 35, 0, 35, 35, 35, 35, 0, 35, 35, 35)
+MARKER_IDS = (3, 17, 44)
 
 # Peaks of the card the bounds are computed for, keyed by
 # torch.cuda.get_device_name(): bytes/s and non-tensor FP32 operations/s
@@ -444,6 +512,25 @@ def bound_entry(name, source, replaces, err, ms, plain_ms, library_ms, bytes_, o
     return entry
 
 
+def response_ops_per_pixel():
+    """(operations a pixel, of them for the 16 samples) of the ring response:
+    each vertical blend formed once per column (it serves two neighbouring
+    outputs); a term with a weight of exactly 0 costs nothing, one of
+    exactly 1 no product, so a blend of two terms costs 3 (2 products + 1
+    sum), of one term 1 or 0; then 16 differences + 16 sums for sr and dr,
+    16 sums and a product for the mean, 3 for mr and 3 for the result."""
+    from caliscope_tpu_torch.detect import cuda_kernels as CK
+
+    _, tap_weights = CK.ring_taps()
+
+    def blend_ops(w0, w1):
+        terms = [w for w in (w0, w1) if w != 0.0]
+        return sum(w != 1.0 for w in terms) + len(terms) - 1
+
+    tap_ops = sum(blend_ops(wy0, wy1) + blend_ops(wx0, wx1) for wy0, wy1, wx0, wx1 in tap_weights.tolist())
+    return tap_ops + 32 + 17 + 6, tap_ops
+
+
 def detect_kernel_phase(device, peaks, frames):
     """Kernels 2-4 against their plain versions on the card, and their
     times at the detection path's shapes. Returns their `kernels` entries."""
@@ -565,20 +652,7 @@ def detect_kernel_phase(device, peaks, frames):
             raise AssertionError(f"corner_response {what}: {int((got != want).sum())} responses differ from the plain version's "
                                  f"(max |diff| {float((got - want).abs().max()):.3e})")
         log(f"kernel corner_response {what} {tuple(x.shape)}: equal to the plain version (torch.equal), max response {float(want.max()):.1f}")
-    # what the function needs per pixel on these taps, each vertical blend
-    # formed once per column (it serves two neighbouring outputs): a term
-    # with a weight of exactly 0 costs nothing, one of exactly 1 no product;
-    # so a blend of two terms costs 3 (2 products + 1 sum), of one term 1 or
-    # 0; then 16 differences + 16 sums for sr and dr, 16 sums and a product
-    # for the mean, 3 for mr and 3 for the result
-    _, tap_weights = CK.ring_taps()
-
-    def blend_ops(w0, w1):
-        terms = [w for w in (w0, w1) if w != 0.0]
-        return sum(w != 1.0 for w in terms) + len(terms) - 1
-
-    tap_ops = sum(blend_ops(wy0, wy1) + blend_ops(wx0, wx1) for wy0, wy1, wx0, wx1 in tap_weights.tolist())
-    ops_px = tap_ops + 32 + 17 + 6
+    ops_px, tap_ops = response_ops_per_pixel()
     log(f"kernel corner_response: {tap_ops} operations a pixel for the 16 samples, {ops_px} in all, each one FP32 "
         f"instruction (no FMA may be formed): {peaks[2] / 1e12:.1f} T/s, not the {peaks[1] / 1e12:.0f} TFLOP/s FMA peak")
     resp_passes = device_ms_by_kernel(lambda: CK.corner_response(imgs))
@@ -1480,6 +1554,531 @@ def constrained_phase(device, smi_line, unconstrained_stages, ring, ring_ip, can
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Intrinsic phase
+# ---------------------------------------------------------------------------
+
+
+def targets_common():
+    """The port tests' numpy renderers of the targets (tests/torch_targets_common.py)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_targets_common
+
+    return torch_targets_common
+
+
+def intrinsic_observations(K, dist, fisheye, n, rng, cam_id, tilt=(0.1, 0.9), axis=None):
+    """n candidate frames of one camera by the JAX suite's single-camera
+    recipe (tests/test_intrinsics.py:14-61; a random tilt axis unless `axis`
+    fixes it) through the port's projection on float64 CPU tensors:
+    (sync, cam, object, keypoint, img, obj) columns."""
+    import numpy as np
+    import torch
+
+    from caliscope_tpu_torch.ops.projection import project_points
+
+    xs, ys = np.meshgrid(np.arange(7), np.arange(5))
+    board = np.zeros((35, 3))
+    board[:, 0], board[:, 1] = xs.ravel() * 0.054, ys.ravel() * 0.054
+    board -= board.mean(axis=0)
+    w, h = INTR_WH
+    args = [torch.tensor(a, dtype=torch.float64) for a in (board, K, dist)]
+    rows, f = [], 0
+    while len(rows) < n:
+        u = rng.normal(size=3) if axis is None else np.asarray(axis, np.float64)
+        rvec = u / np.linalg.norm(u) * rng.uniform(*tilt)
+        t = np.array([rng.uniform(-0.25, 0.25), rng.uniform(-0.15, 0.15), rng.uniform(0.4, 1.2)])
+        uv = project_points(args[0], torch.tensor(rvec), torch.tensor(t), args[1], args[2], fisheye).numpy()
+        uv = uv + rng.normal(scale=INTR_NOISE_PX, size=uv.shape)
+        vis = (uv[:, 0] > 5) & (uv[:, 0] < w - 5) & (uv[:, 1] > 5) & (uv[:, 1] < h - 5)
+        if vis.sum() >= 6:
+            rows.append((np.full(vis.sum(), f), np.flatnonzero(vis), uv[vis], board[vis]))
+        f += 1
+    sync_, kp, img, obj = (np.concatenate(c) for c in zip(*rows))
+    return sync_, np.full(len(sync_), cam_id), np.zeros(len(sync_), np.int64), kp, img, obj
+
+
+def _k_gap(got, want):
+    """Largest relative difference of fx, fy, cx, cy."""
+    import numpy as np
+
+    idx = ([0, 1, 0, 1], [0, 1, 2, 2])
+    return float(np.max(np.abs(got[idx] - want[idx]) / np.abs(want[idx])))
+
+
+def jacobian_times(ip, cam_id, selected, fisheye, device):
+    """The intrinsic LM's J at one camera's selected frames, in float64: the
+    closed form (`_jacobian`) against torch.func.jacfwd of the residuals,
+    ms a call on `device` (CUDA events) and on the host's CPU (wall)."""
+    import numpy as np
+    import torch
+
+    from caliscope_tpu_torch.ops.bucket import bucket_size
+    from caliscope_tpu_torch.pipelines.calibrate_intrinsics import _pack_frames
+    from caliscope_tpu_torch.solvers.intrinsics import _jacobian, _residuals
+
+    obj, img, mask = _pack_frames(ip, cam_id, selected)
+    F, Kc = bucket_size(obj.shape[0], floor=8), bucket_size(obj.shape[1], floor=8)
+    pads = ((0, F - obj.shape[0]), (0, Kc - obj.shape[1]))
+    obj, img, mask = np.pad(obj, pads + ((0, 0),)), np.pad(img, pads + ((0, 0),)), np.pad(mask, pads)
+    n_dist = 4 if fisheye else 5
+    params = np.concatenate([[1400.0, 1400.0, 960.0, 540.0], [-0.2, 0.05, 0.001, -0.001, 0.01][:n_dist], np.tile([0.1, 0.2, 0.1, 0.0, 0.0, 0.8], F)])
+    out = {}
+    for dev in [device] + ([torch.device("cpu")] if device.type == "cuda" else []):
+        p, o, i, m = (torch.as_tensor(a, dtype=torch.float64, device=dev) for a in (params, obj, img, mask))
+        closed = lambda: _jacobian(p, o, m, n_dist, fisheye, False)  # noqa: E731
+        fwd = lambda: torch.func.jacfwd(lambda q: _residuals(q, o, i, m, n_dist, fisheye, False).reshape(-1))(p)  # noqa: E731
+        want = fwd()
+        if not torch.allclose(closed(), want, rtol=1e-10, atol=1e-10 * float(want.abs().max())):
+            raise AssertionError(f"intrinsics (a): the closed-form J differs from jacfwd on {dev}")
+        for name, fn in (("closed", closed), ("jacfwd", fwd)):
+            if dev.type == "cuda":
+                out[f"{name}_{dev.type}_ms"] = time_ms(fn, reps=5, rounds=3)
+            else:
+                fn()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    fn()
+                out[f"{name}_{dev.type}_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+    log(f"intrinsics (a) camera {cam_id}: J ({F * Kc * 2} x {9 + 6 * F}, float64) a call, equal within 1e-10: "
+        + "; ".join(f"closed form {out[f'closed_{t}_ms']:.3f} ms, jacfwd {out[f'jacfwd_{t}_ms']:.3f} ms on "
+                    + ("the card (CUDA events)" if t == "cuda" else "the host's CPU (wall)") for t in ("cuda", "cpu") if f"closed_{t}_ms" in out))
+    return out
+
+
+def intrinsics_from_observations(device):
+    """(a): 8 cameras x 600 candidate frames through run_intrinsic_calibration
+    on `device` (float64, the default), each against its truth, a float32
+    solve and, for camera 0, the port's CPU run; camera 0's J both ways."""
+    import numpy as np
+    import torch
+
+    from caliscope_tpu_torch import CameraData, ImagePoints
+    from caliscope_tpu_torch.frame_selector import select_calibration_frames
+    from caliscope_tpu_torch.pipelines import run_intrinsic_calibration
+    from caliscope_tpu_torch.synthetic.factories import default_ring_scene
+
+    ring = default_ring_scene(n_cameras=8, n_frames=1).cameras.cameras
+    truths = [(ring[c].matrix, ring[c].distortions, False) for c in range(INTR_N_BROWN)]
+    truths += [(np.array(INTR_FISHEYE_K), np.array(INTR_FISHEYE_DIST), True)] * INTR_N_FISHEYE
+    rng = np.random.default_rng(INTR_SEED)
+    t0 = time.perf_counter()
+    cols = [intrinsic_observations(K, d, fe, INTR_CANDIDATES, rng, cid) for cid, (K, d, fe) in enumerate(truths)]
+    ip = ImagePoints(*(np.concatenate(c) for c in zip(*cols)))
+    log(f"intrinsics (a): {len(truths)} cameras x {INTR_CANDIDATES} candidate frames, {len(ip)} observations made in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    worst = {"focal": 0.0, "pp": 0.0, "k1": 0.0, "rmse": 0.0, "f32_k": 0.0, "f32_dist": 0.0}
+    seconds = {"run": 0.0, "solve": 0.0, "solve_f32": 0.0}
+    for cid, (K, d, fe) in enumerate(truths):
+        cam = CameraData(cam_id=cid, size=INTR_WH, fisheye=fe)
+        t0 = time.perf_counter()
+        _, coverage = select_calibration_frames(ip, cid, INTR_WH)  # its own call, for the candidate count
+        select_s = time.perf_counter() - t0
+        sync(device)
+        t0 = time.perf_counter()
+        out = run_intrinsic_calibration(ip, cam, device=device)
+        sync(device)
+        run_s = time.perf_counter() - t0
+        f32 = run_intrinsic_calibration(ip, cam, device=device, dtype=torch.float32)
+        Kc, dc, sv, s32 = out.camera.matrix, out.camera.distortions, out.solve, f32.solve
+        focal = max(abs(Kc[i, i] - K[i, i]) / K[i, i] for i in (0, 1))
+        pp = float(np.abs(Kc[:2, 2] - K[:2, 2]).max())
+        k1 = abs(dc[0] - d[0])
+        f32_k, f32_d = _k_gap(f32.camera.matrix, Kc), float(np.abs(f32.camera.distortions - dc).max())
+        for key, v in (("focal", focal), ("pp", pp), ("k1", k1), ("rmse", out.report.rmse), ("f32_k", f32_k), ("f32_dist", f32_d)):
+            worst[key] = max(worst[key], float(v))
+        for key, v in (("run", run_s), ("solve", sv.seconds), ("solve_f32", s32.seconds)):
+            seconds[key] += v
+        log(
+            f"intrinsics (a) camera {cid} ({'fisheye' if fe else 'Brown'}): {coverage.n_candidate_frames} candidates, "
+            f"{out.report.frames_used} selected (F bucketed {sv.n_frames_bucketed}), {sv.n_iterations} LM iterations "
+            f"(converged {sv.converged}), restart {'taken' if sv.restarted else 'not taken'}, {sv.host_reads} host reads; "
+            f"the run {run_s:.3f} s, its solve {sv.seconds:.3f} s (selection alone {select_s:.3f} s); fx {Kc[0, 0]:.3f} fy "
+            f"{Kc[1, 1]:.3f} cx {Kc[0, 2]:.3f} cy {Kc[1, 2]:.3f} k1 {dc[0]:.5f}; focal error {100 * focal:.4f} %, "
+            f"principal point {pp:.3f} px, k1 {k1:.5f}, RMSE {out.report.rmse:.4f} px; a float32 solve: {s32.n_iterations} "
+            f"LM iterations (converged {s32.converged}), {s32.seconds:.3f} s, against float64 K {f32_k:.2e} relative, "
+            f"distortion {f32_d:.2e}"
+        )
+        if not (focal < FOCAL_RTOL and pp < PP_ATOL_PX and k1 < K1_ATOL[fe] and out.report.rmse < MAX_INTR_RMSE_PX):
+            raise AssertionError(f"intrinsics (a) camera {cid}: focal {focal:.4f}, principal point {pp:.2f} px, k1 {k1:.4f}, "
+                                 f"RMSE {out.report.rmse:.3f} px against the gates {FOCAL_RTOL}, {PP_ATOL_PX}, {K1_ATOL[fe]}, {MAX_INTR_RMSE_PX}")
+        if not (f32_k <= F32_K_RTOL and f32_d <= F32_DIST_ATOL):
+            raise AssertionError(f"intrinsics (a) camera {cid}: float32 and float64 solves part by {f32_k:.2e} (K) / {f32_d:.2e} (distortion)")
+        if cid == 0:
+            t0 = time.perf_counter()
+            cpu = run_intrinsic_calibration(ip, cam, device="cpu")
+            cpu_s = time.perf_counter() - t0
+            gap_k, gap_d = _k_gap(Kc, cpu.camera.matrix), float(np.abs(dc - cpu.camera.distortions).max())
+            log(f"intrinsics (a) camera 0: the card's run against the port's CPU run ({cpu_s:.2f} s, its solve "
+                f"{cpu.solve.seconds:.3f} s, {cpu.solve.n_iterations} LM iterations): K {gap_k:.2e} relative, distortion {gap_d:.2e}")
+            if not (gap_k <= F32_K_RTOL and gap_d <= F32_DIST_ATOL):
+                raise AssertionError(f"intrinsics (a): the card parts from the CPU by {gap_k:.2e} (K) / {gap_d:.2e} (distortion)")
+            jacobian_times(ip, cid, list(out.report.selected_frames), fe, device)
+    log("intrinsics (a): worst over the cameras " + json.dumps({k: float(f"{v:.6g}") for k, v in worst.items()}))
+    log(f"intrinsics (a): {len(truths)} runs {seconds['run']:.3f} s, their float64 solves {seconds['solve']:.3f} s; "
+        f"the {len(truths)} float32 solves {seconds['solve_f32']:.3f} s")
+
+
+def starved_camera(device):
+    """(a'): every candidate tilted about the same axis (the board's x
+    axis), so its perspective falls in fewer than four orientation bins of
+    the selector and the selection keeps every candidate."""
+    import numpy as np
+    import torch
+
+    from caliscope_tpu_torch import CameraData, ImagePoints
+    from caliscope_tpu_torch.pipelines import run_intrinsic_calibration
+    from caliscope_tpu_torch.synthetic.factories import default_ring_scene
+
+    truth = default_ring_scene(n_cameras=1, n_frames=1).cameras.cameras[0]
+    rng = np.random.default_rng(INTR_SEED + 1)
+    ip = ImagePoints(*intrinsic_observations(truth.matrix, truth.distortions, False, STARVED_CANDIDATES, rng, 0, tilt=(0.3, 0.6), axis=(1, 0, 0)))
+    cam = CameraData(cam_id=0, size=INTR_WH)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    sync(device)
+    t0 = time.perf_counter()
+    out = run_intrinsic_calibration(ip, cam, device=device)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    sv = out.solve
+    F, n_params = sv.n_frames_bucketed, 9 + 6 * sv.n_frames_bucketed
+    j_bytes = F * 64 * 2 * n_params * 8  # rows: F x 64 corners (35, bucketed) x 2; float64
+    finite = np.isfinite(out.camera.matrix).all() and np.isfinite(out.camera.distortions).all() and np.isfinite(out.report.rmse)
+    log(
+        f"intrinsics (a') orientation-starved camera: {STARVED_CANDIDATES} candidates tilted about one axis, {out.report.frames_used} "
+        f"selected (orientation bins {out.report.orientation_count}), F = {F}, {n_params} parameters, J {j_bytes / 1e6:.1f} MB "
+        f"in float64, {sv.n_iterations} LM iterations (converged {sv.converged}, restart "
+        f"{'taken' if sv.restarted else 'not taken'}), {sv.host_reads} host reads, {seconds:.3f} s (the solve "
+        f"{sv.seconds:.3f} s), peak device memory "
+        f"{'not measured' if peak is None else f'{peak / 1e6:.1f} MB'}; fx {out.camera.matrix[0, 0]:.2f} "
+        f"(truth {truth.matrix[0, 0]:.0f}), RMSE {out.report.rmse:.4f} px"
+    )
+    if out.report.frames_used != STARVED_CANDIDATES or len(out.report.selected_frames) != STARVED_CANDIDATES or not finite:
+        raise AssertionError(f"intrinsics (a'): {out.report.frames_used} of {STARVED_CANDIDATES} frames used, finite {finite}")
+
+
+def _zero_detect_counts():
+    from caliscope_tpu_torch.detect import ccl as CCL
+    from caliscope_tpu_torch.detect import cuda_kernels as CK
+
+    CCL.connected_components.launches = CK.corner_response.launches = CK.extract_windows.launches = 0
+    CCL.connected_components.resident_launches = 0
+
+
+def _detect_counts():
+    """(ccl, response, windows) launches and the resident labelings."""
+    from caliscope_tpu_torch.detect import ccl as CCL
+    from caliscope_tpu_torch.detect import cuda_kernels as CK
+
+    return (CCL.connected_components.launches, CK.corner_response.launches, CK.extract_windows.launches), CCL.connected_components.resident_launches
+
+
+@contextmanager
+def recorded_gathers(store):
+    """Route the detection modules' calls of kernel 4 (detect/kernels.py's
+    atlas gather, detect/corners.py's corner windows) through a recorder:
+    `store["calls"]` counts their CUDA calls, and `store[(frames shape, K,
+    win)]` keeps the inputs of the first CUDA call of each shape, so each
+    shape a path gave the kernel can be held against the plain version."""
+    from caliscope_tpu_torch.detect import corners as DC
+    from caliscope_tpu_torch.detect import cuda_kernels as CK
+    from caliscope_tpu_torch.detect import kernels as DK
+
+    def record(frames, yi, xi, win):
+        if frames.is_cuda:
+            store["calls"] = store.get("calls", 0) + 1
+            key = (tuple(frames.shape), int(yi.shape[1]), int(win))
+            if key not in store:
+                store[key] = (frames.clone(), yi.clone(), xi.clone(), win)
+        return CK.extract_windows(frames, yi, xi, win)
+
+    saved = DC.extract_windows, DK.extract_windows
+    DC.extract_windows = DK.extract_windows = record
+    try:
+        yield store
+    finally:
+        DC.extract_windows, DK.extract_windows = saved
+
+
+def check_recorded_gathers(store, launches, what):
+    """Every kernel-4 launch of the run went through the recorder, and the
+    kernel equals its plain version (torch.equal) at each shape recorded.
+    Returns the shapes, "(B, K, win) on (B, H, W)"."""
+    import torch
+
+    from caliscope_tpu_torch.detect import cuda_kernels as CK
+
+    if store.get("calls", 0) != launches:
+        raise AssertionError(f"{what}: {launches} window-gather launches, {store.get('calls', 0)} recorded")
+    shapes = []
+    for key, args in store.items():
+        if key == "calls":
+            continue
+        if not torch.equal(CK.extract_windows(*args), CK.extract_windows_plain(*args)):
+            raise AssertionError(f"{what}: extract_windows at {key} differs from the plain version")
+        shapes.append(f"({key[0][0]}, {key[1]}, {key[2]}) on {key[0]}")
+    log(f"{what}: extract_windows equal to the plain version (torch.equal) at every shape the run gave it: " + ", ".join(shapes))
+    return shapes
+
+
+def _packets_to_points(packets):
+    import numpy as np
+
+    from caliscope_tpu_torch import ImagePoints
+
+    n = sum(len(p) for p in packets)
+    return ImagePoints(
+        np.concatenate([np.full(len(p), i) for i, p in enumerate(packets)]), np.zeros(n, np.int64),
+        np.concatenate([p.object_id for p in packets]), np.concatenate([p.keypoint_id for p in packets]),
+        np.concatenate([p.img_loc for p in packets]), np.concatenate([p.obj_loc for p in packets]),
+    )
+
+
+def intrinsics_from_frames(device, tc):
+    """(b): rendered ChArUco frames -> CharucoTracker -> run_intrinsic_calibration.
+    Returns the kernels' launches (ccl, response, windows) on the path."""
+    import numpy as np
+
+    from caliscope_tpu_torch import CameraData
+    from caliscope_tpu_torch.pipelines import run_intrinsic_calibration
+    from caliscope_tpu_torch.targets.charuco import Charuco
+    from caliscope_tpu_torch.trackers import CharucoTracker
+
+    ch = Charuco(rows=5, columns=7, square_size_m=0.054)
+    K = np.array(K_TRUE)
+    t0 = time.perf_counter()
+    frames, truth = tc.posed_board_views(ch, 100, K, DETECT_WH, FRAMES_FOR_INTRINSICS, seed=INTR_SEED)
+    render_s = time.perf_counter() - t0
+    tracker = CharucoTracker(ch, device=device)
+    tracker.get_points_batch(frames[:8], 0)  # warm-up
+    _zero_detect_counts()
+    before = tracker.dispatches
+    sync(device)
+    with recorded_gathers({}) as gathers:
+        t0 = time.perf_counter()
+        packets = tracker.get_points_batch(frames, 0)
+        sync(device)
+        detect_s = time.perf_counter() - t0
+    launches, resident = _detect_counts()
+    dispatches = tracker.dispatches - before
+    errs = np.concatenate([np.linalg.norm(p.img_loc - gt[p.keypoint_id], axis=1) for p, gt in zip(packets, truth)])
+    t0 = time.perf_counter()
+    out = run_intrinsic_calibration(_packets_to_points(packets), CameraData(cam_id=0, size=DETECT_WH), device=device)
+    sync(device)
+    calib_s = time.perf_counter() - t0
+    Kc, dc, sv = out.camera.matrix, out.camera.distortions, out.solve
+    focal = max(abs(Kc[i, i] - K[i, i]) / K[i, i] for i in (0, 1))
+    pp = float(np.abs(Kc[:2, 2] - K[:2, 2]).max())
+    log(
+        f"intrinsics (b) from frames: {len(frames)} ChArUco frames {DETECT_WH[0]}x{DETECT_WH[1]} rendered in {render_s:.2f} s "
+        f"(host); CharucoTracker.get_points_batch {detect_s:.3f} s on {device}: {len(errs)} corners "
+        f"(error mean {errs.mean():.4f} px, max {errs.max():.4f} px), {dispatches} dispatches, launches ccl {launches[0]} "
+        f"(resident {resident}) response {launches[1]} windows {launches[2]}; run_intrinsic_calibration {calib_s:.3f} s "
+        f"(the solve {sv.seconds:.3f} s): {out.report.frames_used} frames (F bucketed {sv.n_frames_bucketed}), "
+        f"{sv.n_iterations} LM iterations (converged {sv.converged}), restart "
+        f"{'taken' if sv.restarted else 'not taken'}, {sv.host_reads} host reads; fx {Kc[0, 0]:.3f} fy {Kc[1, 1]:.3f} cx "
+        f"{Kc[0, 2]:.3f} cy {Kc[1, 2]:.3f} k1 {dc[0]:.5f} against K_TRUE {K_TRUE[0][0]}/{K_TRUE[1][1]}/{K_TRUE[0][2]}/{K_TRUE[1][2]}: "
+        f"focal {100 * focal:.4f} %, principal point {pp:.3f} px, RMSE {out.report.rmse:.4f} px"
+    )
+    if device.type == "cuda" and (launches != (dispatches, dispatches, 2 * dispatches) or resident != dispatches):
+        raise AssertionError(f"intrinsics (b): launches {launches} (resident {resident}) for {dispatches} dispatches")
+    if device.type == "cuda":
+        check_recorded_gathers(gathers, launches[2], "intrinsics (b)")
+    if not (focal < FOCAL_RTOL and pp < PP_ATOL_PX and abs(dc[0]) < K1_ATOL[False] and errs.mean() < MAX_MEAN_CORNER_ERROR_PX):
+        raise AssertionError(f"intrinsics (b): focal {focal:.4f}, principal point {pp:.2f} px, k1 {dc[0]:.4f}, corner error {errs.mean():.3f} px")
+    return launches
+
+
+def _card_vs_cpu(got, want, what):
+    import numpy as np
+
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not (np.array_equal(g.object_id, w.object_id) and np.array_equal(g.keypoint_id, w.keypoint_id)):
+            raise AssertionError(f"{what} frame {i}: the card's ids differ from the CPU's")
+        if len(w) and np.abs(g.img_loc - w.img_loc).max() > GPU_VS_CPU_ATOL_PX:
+            raise AssertionError(f"{what} frame {i}: the card's corners part from the CPU's by {np.abs(g.img_loc - w.img_loc).max():.3e} px")
+    return max((float(np.abs(g.img_loc - w.img_loc).max()) for g, w in zip(got, want) if len(w)), default=0.0)
+
+
+def chessboard_views(tc, seed, tilt=(0.1, 0.9)):
+    """TRACKER_FRAMES views of the 6x8-square chessboard (60 px squares of
+    30 mm) through K_TRUE at the recipe's poses: (frames, homographies sheet
+    pixels -> frame, the inner corners in sheet pixels)."""
+    import numpy as np
+
+    sheet, xy = tc.chessboard_sheet(6, 8, 60, 30)
+    px_to_m = np.array([[0.03 / 60, 0.0], [0.0, 0.03 / 60], [0.0, 0.0]])
+    frames, Hs = tc.posed_views(sheet, px_to_m, np.array(K_TRUE), DETECT_WH, TRACKER_FRAMES, seed=seed, tilt=tilt)
+    return frames, Hs, xy
+
+
+def chessboard_path(device, tc):
+    """(c) chessboard: 16 frames, one a call, on the card and on the CPU.
+    Returns (launches, the frames, the frames of the full tilt range)."""
+    import numpy as np
+
+    from caliscope_tpu_torch.targets import Chessboard, render
+    from caliscope_tpu_torch.trackers import ChessboardTracker
+
+    frames, Hs, xy = chessboard_views(tc, INTR_SEED + 2, CHESS_TILT)
+    board = Chessboard(5, 7, 0.03)
+    tracker = ChessboardTracker(board, device=device)
+    tracker.get_points(frames[0])  # warm-up
+    _zero_detect_counts()
+    sync(device)
+    with recorded_gathers({}) as gathers:
+        t0 = time.perf_counter()
+        packets = [tracker.get_points(f) for f in frames]
+        sync(device)
+        seconds = time.perf_counter() - t0
+    launches, _ = _detect_counts()
+    complete = sum(len(p) == board.n_corners for p in packets)
+    errs = [tc.grid_error(p.img_loc, p.keypoint_id, render.project(H, xy), 5, 7) for p, H in zip(packets, Hs) if len(p)]
+    cpu_tracker = ChessboardTracker(board, device="cpu")
+    gap = _card_vs_cpu(packets, [cpu_tracker.get_points(f) for f in frames], "chessboard")
+    wide, _, _ = chessboard_views(tc, CHESS_WIDE_SEED)
+    wide_card = [tracker.get_points(f) for f in wide]
+    _card_vs_cpu(wide_card, [cpu_tracker.get_points(f) for f in wide], "chessboard (tilt 0.1-0.9 rad)")
+    wide_corners = tuple(len(p) for p in wide_card)
+    log(
+        f"chessboard tracker: {len(frames)} frames {DETECT_WH[0]}x{DETECT_WH[1]} (tilt {CHESS_TILT[0]}-{CHESS_TILT[1]} rad) one a call, "
+        f"{seconds:.3f} s on {device} ({1e3 * seconds / len(frames):.1f} ms a frame): {complete} complete grids, corner "
+        f"error mean {np.mean(errs):.4f} px (worst frame {np.max(errs):.4f}); launches ccl {launches[0]} response "
+        f"{launches[1]} windows {launches[2]}; the card within {gap:.2e} px of the CPU; at the recipe's tilt of 0.1-0.9 rad "
+        f"{sum(len(p) == board.n_corners for p in wide_card)} of {len(wide)} views complete, the same views as on the CPU "
+        f"and as the JAX package's tracker"
+    )
+    if wide_corners != CHESS_WIDE_CORNERS:
+        raise AssertionError(f"chessboard (tilt 0.1-0.9 rad): corners a view {wide_corners}, the JAX package's {CHESS_WIDE_CORNERS}")
+    if complete != len(frames) or np.mean(errs) >= MAX_MEAN_CORNER_ERROR_PX:
+        raise AssertionError(f"chessboard: {complete} of {len(frames)} grids complete, mean corner error {np.mean(errs):.3f} px")
+    if device.type == "cuda" and launches != (0, len(frames), 2 * len(frames)):
+        raise AssertionError(f"chessboard: launches {launches} for {len(frames)} frames (a response and two window gathers each)")
+    if device.type == "cuda":
+        check_recorded_gathers(gathers, launches[2], "chessboard")
+    return launches, frames
+
+
+def aruco_path(device, tc):
+    """(c) ArUco: 16 frames of three markers, one a call. Returns (launches, frames)."""
+    import numpy as np
+
+    from caliscope_tpu_torch.targets import ArucoMarker, ArucoMarkerSet, render
+    from caliscope_tpu_torch.trackers import ArucoTracker
+
+    K = np.array(K_TRUE)
+    sheet, corners = tc.marker_sheet("DICT_4X4_50", [(3, 60, 60), (17, 500, 80), (44, 260, 380)], (840, 640), 30)
+    px_to_m = np.array([[0.1 / 180, 0.0], [0.0, 0.1 / 180], [0.0, 0.0]])  # 180 px markers of 0.1 m
+    frames, Hs = tc.posed_views(sheet, px_to_m, K, DETECT_WH, TRACKER_FRAMES, seed=INTR_SEED + 3)
+    tracker = ArucoTracker(ArucoMarkerSet("DICT_4X4_50", {i: ArucoMarker(i, 0.1) for i in MARKER_IDS}), device=device)
+    tracker.get_points(frames[0])  # warm-up
+    _zero_detect_counts()
+    sync(device)
+    with recorded_gathers({}) as gathers:
+        t0 = time.perf_counter()
+        packets = [tracker.get_points(f) for f in frames]
+        sync(device)
+        seconds = time.perf_counter() - t0
+    launches, resident = _detect_counts()
+    errs = []
+    for i, (p, H) in enumerate(zip(packets, Hs)):
+        ids = sorted(set(p.object_id.tolist()))
+        kps = {m: sorted(p.keypoint_id[p.object_id == m].tolist()) for m in ids}
+        if ids != list(MARKER_IDS) or any(k != [0, 1, 2, 3] for k in kps.values()):
+            raise AssertionError(f"aruco frame {i}: ids {ids}, keypoints {kps}")
+        truth = {m: render.project(H, c) for m, c in corners.items()}
+        errs.append(float(np.mean([np.linalg.norm(p.img_loc[j] - truth[int(m)][int(k)]) for j, (m, k) in enumerate(zip(p.object_id, p.keypoint_id))])))
+    gap = _card_vs_cpu(packets, [ArucoTracker(tracker.marker_set, device="cpu").get_points(f) for f in frames], "aruco")
+    log(
+        f"aruco tracker: {len(frames)} frames {DETECT_WH[0]}x{DETECT_WH[1]} of {len(MARKER_IDS)} markers one a call, {seconds:.3f} s "
+        f"on {device} ({1e3 * seconds / len(frames):.1f} ms a frame): every id and corner found, corner error mean "
+        f"{np.mean(errs):.4f} px (worst frame {np.max(errs):.4f}); launches ccl {launches[0]} (resident {resident}) response "
+        f"{launches[1]} windows {launches[2]}; the card within {gap:.2e} px of the CPU"
+    )
+    if np.mean(errs) >= MAX_MEAN_CORNER_ERROR_PX:
+        raise AssertionError(f"aruco: mean corner error {np.mean(errs):.3f} px")
+    if device.type == "cuda" and (launches != (len(frames), 0, len(frames)) or resident != len(frames)):
+        raise AssertionError(f"aruco: launches {launches} (resident {resident}) for {len(frames)} frames")
+    if device.type == "cuda":
+        check_recorded_gathers(gathers, launches[2], "aruco")
+    return launches, frames
+
+
+def tracker_kernel_checks(device, peaks, chess_frame, aruco_frame):
+    """Kernels 2-4 against their plain versions at the trackers' shapes (B =
+    1; the chessboard's K = 512 corner windows of 28 x 28), with times and
+    bounds there. Returns {kernel: the entry's `tracker_shapes` record}."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from caliscope_tpu_torch.detect import ccl as CCL
+    from caliscope_tpu_torch.detect import cuda_kernels as CK
+    from caliscope_tpu_torch.detect import kernels as DK
+    from caliscope_tpu_torch.detect.corners import nms_corners
+
+    counts = _detect_counts()
+    imgs = torch.from_numpy(chess_frame[None].astype(np.float32)).to(device)
+    _, H, W = imgs.shape
+    resp = CK.corner_response(imgs)
+    if not torch.equal(resp, CK.corner_response_plain(imgs)):
+        raise AssertionError("corner_response at B = 1: differs from the plain version")
+    xy, _, _ = nms_corners(resp, 512)
+    win, pad = 28, 14  # refine_corners_subpix at win 5, 4 iterations
+    padded = F.pad(imgs[:, None], (pad, pad, pad, pad), mode="replicate")[:, 0].contiguous()
+    xi = torch.clamp(torch.round(xy[..., 0]).to(torch.int32) - win // 2 + pad, 0, W + 2 * pad - win).contiguous()
+    yi = torch.clamp(torch.round(xy[..., 1]).to(torch.int32) - win // 2 + pad, 0, H + 2 * pad - win).contiguous()
+    if not torch.equal(CK.extract_windows(padded, yi, xi, win), CK.extract_windows_plain(padded, yi, xi, win)):
+        raise AssertionError("extract_windows at K = 512, win 28: differs from the plain version")
+    a = torch.from_numpy(aruco_frame[None].astype(np.float32)).to(device)
+    integral = DK.integral_image(a)
+    mask = (DK.adaptive_threshold(a, 10, 7.0, integral) | DK.adaptive_threshold(a, 26, 7.0, integral)).contiguous()
+    if not torch.equal(CCL.connected_components(mask, 4), CCL.connected_components_plain(mask, 4)):
+        raise AssertionError("ccl at B = 1: differs from the plain version")
+    log("kernels at the trackers' shapes: corner_response (1,720,1280), extract_windows (1,748,1308) K=512 win=28 and ccl "
+        "(1,720,1280) each equal to the plain version (torch.equal)")
+    ar = torch.arange(win, device=device)
+    yy, xx = yi.long()[:, :, None, None] + ar[:, None], xi.long()[:, :, None, None] + ar[None, :]
+    ops_px, _ = response_ops_per_pixel()
+    out = {}
+    for name, fn, plain, lib, bytes_, ops, what, rate in (
+        ("ccl", lambda: CCL.connected_components(mask, 4), lambda: CCL.connected_components_plain(mask, 4), None,
+         H * W * 5, H * W * 2 * 4, "(1,720,1280) bool, n_iters=4", None),
+        ("corner_response", lambda: CK.corner_response(imgs), lambda: CK.corner_response_plain(imgs), None,
+         H * W * 8, H * W * ops_px, "(1,720,1280) f32", peaks[2]),
+        ("extract_windows", lambda: CK.extract_windows(padded, yi, xi, win), lambda: CK.extract_windows_plain(padded, yi, xi, win),
+         lambda: padded[0][yy[0], xx[0]], 512 * (2 * 4 * win * win + 8), 0, "(1,748,1308) f32, K=512, win=28", None),
+    ):
+        e = bound_entry(name, "", "", 0.0, time_ms(fn), time_ms(plain, reps=3, rounds=3), None if lib is None else time_ms(lib),
+                        bytes_, ops, peaks, what + " (the trackers' shape)", op_rate=rate)
+        out[name] = {k: e[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")} | {"shape": what}
+    (CCL.connected_components.launches, CK.corner_response.launches, CK.extract_windows.launches), CCL.connected_components.resident_launches = counts
+    return out
+
+
+def intrinsic_phase(device, peaks):
+    """(a), (a'), (b), (c) and the kernels at the trackers' shapes. Returns
+    ({path: (ccl, response, windows) launches}, {kernel: tracker-shape record})."""
+    tc = targets_common()
+    t0 = time.perf_counter()
+    intrinsics_from_observations(device)
+    log(f"intrinsics (a): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    starved_camera(device)
+    log(f"intrinsics (a'): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    by_path = {"intrinsics_from_frames": intrinsics_from_frames(device, tc)}
+    log(f"intrinsics (b): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    by_path["chessboard"], chess_frames = chessboard_path(device, tc)
+    by_path["aruco"], aruco_frames = aruco_path(device, tc)
+    log(f"trackers (c): {time.perf_counter() - t0:.2f} s")
+    shapes = tracker_kernel_checks(device, peaks, chess_frames[0], aruco_frames[0]) if device.type == "cuda" else {}
+    return by_path, shapes
+
+
 def main() -> int:
     try:
         import torch
@@ -1553,7 +2152,15 @@ def main() -> int:
     entry["launches"] = launches + pipe_launches + constrained_launches
     entry["launches_by_path"] = {
         "ba_slice": launches, "pipeline": pipe_launches, "constrained_and_sparse_pipelines": constrained_launches,
+        "intrinsics_from_frames": 0, "chessboard": 0, "aruco": 0,
     }
+    t0 = time.perf_counter()
+    intr_launches, tracker_shapes = intrinsic_phase(device, peaks)
+    log(f"intrinsic phase: {time.perf_counter() - t0:.2f} s")
+    for i, e in enumerate(detect_entries):
+        e["launches_by_path"] = {"detection_slice": e["launches"]} | {path: n[i] for path, n in intr_launches.items()}
+        e["launches"] = sum(e["launches_by_path"].values())
+        e["tracker_shapes"] = tracker_shapes[e["name"]]
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, the kernels' build included")
     log(json.dumps({"kernels": [entry, *detect_entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
 """Import-boundary canaries for the PyTorch/CUDA port.
 
-`import caliscope_tpu_torch` and every module of the slice must load
+`import caliscope_tpu_torch` and every module of the package (the list is
+derived from its files) must load
 neither JAX nor anything of the JAX package (caliscope_tpu), nor triton,
 and must not create a CUDA context; chip_smoke.py must import none of JAX,
 the JAX package or bench.py. Each canary runs in a subprocess so this
@@ -18,50 +19,27 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 
-SLICE_MODULES = [
-    "caliscope_tpu_torch",
-    "caliscope_tpu_torch._cuda_build",
-    "caliscope_tpu_torch.cameras",
-    "caliscope_tpu_torch.convert",
-    "caliscope_tpu_torch.detect.aruco",
-    "caliscope_tpu_torch.detect.ccl",
-    "caliscope_tpu_torch.detect.corners",
-    "caliscope_tpu_torch.detect.cuda_kernels",
-    "caliscope_tpu_torch.detect.dictionaries",
-    "caliscope_tpu_torch.detect.kernels",
-    "caliscope_tpu_torch.frame_selector",
-    "caliscope_tpu_torch.observations",
-    "caliscope_tpu_torch.ops.epipolar",
-    "caliscope_tpu_torch.ops.lie",
-    "caliscope_tpu_torch.ops.pnp",
-    "caliscope_tpu_torch.ops.projection",
-    "caliscope_tpu_torch.ops.reprojection",
-    "caliscope_tpu_torch.ops.similarity",
-    "caliscope_tpu_torch.ops.triangulate",
-    "caliscope_tpu_torch.packets",
-    "caliscope_tpu_torch.persistence",
-    "caliscope_tpu_torch.pipelines",
-    "caliscope_tpu_torch.pipelines.calibrate_extrinsics",
-    "caliscope_tpu_torch.reports",
-    "caliscope_tpu_torch.scale",
-    "caliscope_tpu_torch.solvers.bundle",
-    "caliscope_tpu_torch.solvers.fused_schur",
-    "caliscope_tpu_torch.solvers.pose_network",
-    "caliscope_tpu_torch.synthetic",
-    "caliscope_tpu_torch.synthetic.calibration_object",
-    "caliscope_tpu_torch.synthetic.camera_synthesizer",
-    "caliscope_tpu_torch.synthetic.factories",
-    "caliscope_tpu_torch.synthetic.faults",
-    "caliscope_tpu_torch.synthetic.scene",
-    "caliscope_tpu_torch.synthetic.se3",
-    "caliscope_tpu_torch.synthetic.trajectory",
-    "caliscope_tpu_torch.targets.charuco",
-    "caliscope_tpu_torch.targets.render",
-    "caliscope_tpu_torch.tasks",
-    "caliscope_tpu_torch.tracker",
-    "caliscope_tpu_torch.trackers.charuco_tracker",
-    "caliscope_tpu_torch.volume",
-]
+PACKAGE = ROOT / "caliscope_tpu_torch"
+
+# Modules of the package that the canary cannot import on its own, with the
+# reason. Every other module under caliscope_tpu_torch/ is checked.
+NOT_IN_CANARY: dict[str, str] = {}
+
+
+def _package_modules() -> list[str]:
+    """Every module of the package, from its files (the build directory,
+    which holds compiled kernels and no sources, is skipped)."""
+    names = []
+    for path in sorted(PACKAGE.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        if "_build" in rel.parts:
+            continue
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        names.append(".".join(parts))
+    return sorted(names)
+
+
+SLICE_MODULES = [m for m in _package_modules() if m not in NOT_IN_CANARY]
 
 CANARY = """
 import sys
@@ -76,6 +54,18 @@ assert not torch.cuda.is_initialized(), 'import {module} created a CUDA context'
 assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
 assert torch.get_float32_matmul_precision() == 'highest'
 """
+
+
+def test_module_list_covers_the_package():
+    """The canary's list is the package's files: the modules every earlier
+    slice added are in it, and nothing is left out without a reason."""
+    modules = _package_modules()
+    for name in ("caliscope_tpu_torch.constraints", "caliscope_tpu_torch.device", "caliscope_tpu_torch.exceptions",
+                 "caliscope_tpu_torch.ops.bucket", "caliscope_tpu_torch.kernel_times",
+                 "caliscope_tpu_torch.solvers.intrinsics", "caliscope_tpu_torch.trackers.chessboard_tracker"):
+        assert name in SLICE_MODULES
+    assert set(SLICE_MODULES) | set(NOT_IN_CANARY) == set(modules)
+    assert all(reason for reason in NOT_IN_CANARY.values())
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
