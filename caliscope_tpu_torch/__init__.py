@@ -38,9 +38,19 @@ anchoring and scale QA on `CaptureVolume` (`scaled`, `oriented`,
 `grounded`, `compute_volumetric_scale_accuracy`) and the synthetic fixture
 repository.
 
+Slice 6 carries the markerless path: the epipolar bootstrap
+(`solvers/epipolar.py`, chosen by `calibrate_extrinsics` for observations
+without obj_loc), gap filling and Butterworth smoothing
+(`observations.py`, `ops/signal.py`), `reconstruction.reconstruct_xyz` with
+the CSV / TRC / Blender exports (`export/`), and the first-party ONNX pose
+stack (`pose/`: reader and writer, the RTMPose family, the executor
+`OnnxTorchSession`, decoding and `OnnxTracker`). Its BA stages run through
+the Schur kernel; the network runs as eager torch ops on the device.
+
 Devices: every entry point (`calibrate_extrinsics`, `run_intrinsic_calibration`,
 `calibrate_intrinsics`, `solve_intrinsics`, `CaptureVolume`, `lm_solve`,
-`ImagePoints.triangulate`, the three trackers, `detect_markers`,
+`ImagePoints.triangulate`, `WorldPoints.smooth`, `reconstruct_xyz`, the
+three target trackers, `OnnxTracker`, `OnnxTorchSession`, `detect_markers`,
 `detect_x_corners_device`) runs on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device it raises instead of falling back.
 The solves' float dtype follows the device unless given: float32 on CUDA,

@@ -186,3 +186,22 @@ def ba_problem(arrays: Mapping[str, Any], device=None, dtype=None):
         k: torch.as_tensor(np.array(v, copy=True), device=device, dtype=kinds.get(k, dtype)) for k, v in arrays.items()
     }
     return BAProblem(**tensors, any_fisheye=bool(np.asarray(arrays["fisheye"]).any()))
+
+
+def onnx_model(data: bytes):
+    """A serialized ONNX model (e.g. the JAX package's OnnxModel through its
+    onnx_proto.write_model) -> the port's OnnxModel."""
+    from caliscope_tpu_torch.pose.onnx_proto import parse_model
+
+    return parse_model(bytes(data))
+
+
+def rtmpose(state_dict: Mapping[str, Any], variant: str, n_keypoints: int, input_hw=(256, 192)):
+    """An RTMPose of the JAX package's rtmpose_arch (its state_dict(), with
+    the constructor's arguments) -> the port's RTMPose with those weights,
+    in eval mode on the CPU."""
+    from caliscope_tpu_torch.pose.rtmpose_arch import RTMPose
+
+    model = RTMPose(variant=variant, n_keypoints=n_keypoints, input_hw=input_hw)
+    model.load_state_dict({k: torch.as_tensor(v).cpu() for k, v in state_dict.items()})
+    return model.eval()

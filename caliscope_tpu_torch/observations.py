@@ -6,7 +6,11 @@ the undistortion and the batched DLT on a device. CSV files are the JAX
 package's, column for column and byte for byte, written and read without
 pandas (persistence.write_csv_columns / read_csv_columns).
 
-Not ported yet: gap filling and `WorldPoints.smooth` (it needs ops/signal).
+Gap filling (`ImagePoints.fill_gaps`, `WorldPoints.fill_gaps`) runs on the
+host, vectorized over every track at once (the JAX package loops over
+tracks in Python), with the reference's rows, values and order;
+`WorldPoints.smooth` runs the zero-phase Butterworth filter (ops/signal.py)
+on a device, every track of one length in one call.
 """
 
 from __future__ import annotations
@@ -60,6 +64,38 @@ def _floats(cells: list[str]) -> np.ndarray:
 
 def _ints(cells: list[str]) -> np.ndarray:
     return np.array([int(float(v)) for v in cells], dtype=np.int64)
+
+
+def _track_order(rows: np.ndarray, sync: np.ndarray, track: tuple[np.ndarray, ...]) -> np.ndarray:
+    """`rows` grouped by track and, within a track, in the order the JAX
+    package visits them: np.argsort (quicksort) of the track's sync indices
+    taken in row order, so that even duplicate observations pair up the
+    same way."""
+    grouped = rows[np.lexsort(tuple(col[rows] for col in reversed(track)))]  # stable: row order within a track
+    keys = np.stack([col[grouped] for col in track], axis=1)
+    starts = np.flatnonzero(np.r_[True, (keys[1:] != keys[:-1]).any(axis=1)]) if len(grouped) else np.zeros(0, int)
+    ends = np.r_[starts[1:], len(grouped)]
+    return np.concatenate([grouped[a:b][np.argsort(sync[grouped[a:b]])] for a, b in zip(starts, ends)] or [grouped])
+
+
+def _gap_rows(sync: np.ndarray, track: tuple[np.ndarray, ...], max_gap: int):
+    """For rows in track order (`_track_order`), one entry per missing sync
+    index of a gap of at most max_gap frames: the position of its track's
+    first row, of the row before the gap (`src`; src + 1 is the row after
+    it), the index's offset from that row's sync (`step`) and the fraction
+    of the way across (`frac`, the JAX package's integer quotient)."""
+    n = len(sync)
+    same = np.ones(max(n - 1, 0), bool)
+    for col in track:
+        same &= col[1:] == col[:-1]
+    starts = np.flatnonzero(np.r_[True, ~same])
+    first = np.repeat(starts, np.diff(np.r_[starts, n]))
+    gaps = np.diff(sync)
+    at = np.flatnonzero(same & (gaps > 1) & (gaps <= max_gap + 1))
+    counts = gaps[at] - 1
+    src = np.repeat(at, counts)
+    step = np.arange(counts.sum()) - np.repeat(np.cumsum(counts) - counts, counts) + 1
+    return first[src], src, step, step / np.repeat(gaps[at], counts)
 
 
 @dataclass
@@ -123,6 +159,26 @@ class ImagePoints:
     @classmethod
     def empty(cls) -> "ImagePoints":
         return cls(np.zeros(0), np.zeros(0), np.zeros(0), np.zeros(0), np.zeros((0, 2)))
+
+    @classmethod
+    def concat(cls, parts: list["ImagePoints"]) -> "ImagePoints":
+        """Rows of every non-empty part in order; frame_time only when every
+        part has one."""
+        parts = [p for p in parts if len(p)]
+        if not parts:
+            return cls.empty()
+        ft = None
+        if all(p.frame_time is not None for p in parts):
+            ft = np.concatenate([p.frame_time for p in parts])
+        return cls(
+            np.concatenate([p.sync_index for p in parts]),
+            np.concatenate([p.cam_id for p in parts]),
+            np.concatenate([p.object_id for p in parts]),
+            np.concatenate([p.keypoint_id for p in parts]),
+            np.concatenate([p.img_xy for p in parts]),
+            np.concatenate([p.obj_loc for p in parts]),
+            ft,
+        )
 
     # ---- keys & grouping ---------------------------------------------------
     def point_index(self, static_object_ids: frozenset[int] = frozenset()):
@@ -225,6 +281,32 @@ class ImagePoints:
             frame_time=ft[keep],
         )
 
+    # ---- gap filling -------------------------------------------------------
+    def fill_gaps(self, max_gap: int = 3) -> "ImagePoints":
+        """Linearly interpolate missing sync indices within each
+        (cam, object, keypoint) track when the gap is <= max_gap frames.
+        Filled rows carry the track's obj_loc when its first row has one;
+        once any row is filled the result has no frame_time (the JAX
+        package's concatenation drops it)."""
+        if len(self) == 0 or max_gap <= 0:
+            return self
+        order = _track_order(np.arange(len(self)), self.sync_index, (self.cam_id, self.object_id, self.keypoint_id))
+        first, src, step, frac = _gap_rows(
+            self.sync_index[order], (self.cam_id[order], self.object_id[order], self.keypoint_id[order]), max_gap
+        )
+        if len(src) == 0:
+            return self
+        i0, i1 = order[src], order[src + 1]
+        xy = self.img_xy[i0] + frac[:, None] * (self.img_xy[i1] - self.img_xy[i0])
+        track_obj_loc = self.obj_loc[order[first]]
+        obj_loc = np.where(np.isfinite(track_obj_loc).all(axis=1)[:, None], track_obj_loc, np.nan)
+        new = ImagePoints(
+            self.sync_index[i0] + step,
+            self.cam_id[i0], self.object_id[i0], self.keypoint_id[i0], xy, obj_loc,
+        )
+        out = ImagePoints.concat([self, new])
+        return out.select(np.lexsort((out.keypoint_id, out.object_id, out.cam_id, out.sync_index)))
+
     # ---- CSV ---------------------------------------------------------------
     def to_csv(self, path: Path | str) -> None:
         cols = {
@@ -312,6 +394,57 @@ class WorldPoints:
 
     def with_xyz(self, xyz: np.ndarray) -> "WorldPoints":
         return WorldPoints(self.sync_index, self.object_id, self.keypoint_id, xyz, self.frame_time)
+
+    # ---- gap filling + smoothing ------------------------------------------
+    def fill_gaps(self, max_gap: int = 3) -> "WorldPoints":
+        """Linear interpolation of missing sync indices (xyz and frame_time)
+        per (obj, kp) track; static rows are never filled."""
+        if len(self) == 0 or max_gap <= 0:
+            return self
+        moving = np.flatnonzero(self.sync_index != STATIC_SYNC_INDEX)
+        order = _track_order(moving, self.sync_index, (self.object_id, self.keypoint_id))
+        _first, src, step, frac = _gap_rows(
+            self.sync_index[order], (self.object_id[order], self.keypoint_id[order]), max_gap
+        )
+        if len(src) == 0:
+            out = self
+        else:
+            i0, i1 = order[src], order[src + 1]
+            new = WorldPoints(
+                self.sync_index[i0] + step,
+                self.object_id[i0],
+                self.keypoint_id[i0],
+                self.xyz[i0] + frac[:, None] * (self.xyz[i1] - self.xyz[i0]),
+                self.frame_time[i0] + frac * (self.frame_time[i1] - self.frame_time[i0]),
+            )
+            out = WorldPoints(*(np.concatenate([getattr(self, f), getattr(new, f)])
+                                for f in ("sync_index", "object_id", "keypoint_id", "xyz", "frame_time")))
+        return out.select(np.lexsort((out.keypoint_id, out.object_id, out.sync_index)))
+
+    def smooth(self, fps: float, cutoff_hz: float = 6.0, order: int = 2, device=None, dtype=None) -> "WorldPoints":
+        """Zero-phase Butterworth low-pass per (obj, kp) track, on `device`
+        (CUDA unless named) in its default dtype; tracks too short for the
+        filter's padding and static rows are left as they are."""
+        from caliscope_tpu_torch.device import resolve_device, resolve_dtype
+        from caliscope_tpu_torch.ops.signal import butter_lowpass, filtfilt
+
+        if len(self) == 0:
+            return self
+        device = resolve_device(device)
+        dtype = resolve_dtype(device, dtype)
+        b, a = butter_lowpass(cutoff_hz, fps, order)
+        moving = np.flatnonzero(self.sync_index != STATIC_SYNC_INDEX)
+        rows = _track_order(moving, self.sync_index, (self.object_id, self.keypoint_id))
+        obj, kp = self.object_id[rows], self.keypoint_id[rows]
+        starts = np.flatnonzero(np.r_[True, (obj[1:] != obj[:-1]) | (kp[1:] != kp[:-1])])
+        lengths = np.diff(np.r_[starts, len(rows)])
+        xyz = self.xyz.copy()
+        for n in np.unique(lengths[lengths > 3 * max(len(a), len(b))]):
+            idx = rows[starts[lengths == n][:, None] + np.arange(n)[None, :]]  # (tracks, n)
+            x = torch.as_tensor(self.xyz[idx].transpose(1, 0, 2).reshape(n, -1), device=device, dtype=dtype)
+            y = filtfilt(b, a, x).cpu().numpy().astype(np.float64)
+            xyz[idx] = y.reshape(n, -1, 3).transpose(1, 0, 2)
+        return self.with_xyz(xyz)
 
     # ---- CSV ---------------------------------------------------------------
     def to_csv(self, path: Path | str) -> None:

@@ -14,8 +14,8 @@ cancellation.
 Devices: the bootstrap and every solve run on `device` (CUDA unless the
 caller passes another, e.g. "cpu"); the solves in `dtype` (float32 on CUDA,
 float64 on the CPU unless given), the pose network in the device's default.
-
-Not ported yet: the markerless bootstrap (ROADMAP.md queue 1 item 22).
+Observations without obj_loc (markerless data) take the epipolar bootstrap
+(solvers/epipolar.py) and then the same BA stages.
 """
 
 from __future__ import annotations

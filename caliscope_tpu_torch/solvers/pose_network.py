@@ -678,10 +678,12 @@ def build_pose_network(
     **kwargs,
 ) -> "PairedPoseNetwork":
     """Bootstrap dispatch: obj_loc present on any observation -> PnP path;
-    all-NaN -> the markerless (essential-matrix) path, not ported yet."""
+    all-NaN -> the markerless (essential-matrix) path of solvers/epipolar.py."""
     if image_points.any_obj_loc:
         return build_pnp_pose_network(image_points, camera_array, device=device, **kwargs)
-    raise not_ported("The markerless (epipolar) bootstrap", "item 22, solvers/epipolar.py")
+    from caliscope_tpu_torch.solvers.epipolar import build_epipolar_pose_network
+
+    return build_epipolar_pose_network(image_points, camera_array, device=device)
 
 
 def build_pnp_pose_network(

@@ -219,6 +219,21 @@ MARKER_IDS = (3, 17, 44)
 # (the H100 SXM's data-sheet rates at its full 700 W power limit; an FMA
 # counts as two operations), and FP32 instructions/s where no FMA may be
 # formed (132 SMs x 128 lanes x 1.98 GHz: one operation a lane a clock).
+# markerless phase: (a) the pipeline scene without obj_loc, (a') the card
+# against the CPU on a small ring; (b) observations dropped in runs; (c)
+# RTMPose-m Halpe26 (its model card: 26 keypoints, 256 x 192, SimCC); (d)
+# the blob chain (the JAX suite's surrogate, tests/test_onnx_engine.py)
+MARKERLESS_SMALL = (4, 25)
+DROP_FRACTION = 0.05
+MAX_RECON_MEDIAN_M = 0.005
+POSE_VARIANT, POSE_CARD = "m", "rtmpose_m_halpe26.toml"
+POSE_ATOL, POSE_RTOL = 2e-3, 1e-3  # tests/test_rtmpose_arch.py:69-70
+POSE_FRAMES = 32
+CHAIN_CAMERAS, CHAIN_FRAMES = 4, 80
+CHAIN_MODEL_HW = (128, 160)
+MAX_CHAIN_MEDIAN_M = 0.02  # tests/test_onnx_engine.py:256
+EPIPOLAR_PARTS = ("pooled_correspondences", "recover_pair_pose", "_assemble_from_scaffold", "stereo_rmse")
+
 PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12, 33.5e12)}
 
 
@@ -2079,6 +2094,527 @@ def intrinsic_phase(device, peaks):
     return by_path, shapes
 
 
+# ---------------------------------------------------------------------------
+# Markerless: the epipolar bootstrap, reconstruction, pose inference
+# ---------------------------------------------------------------------------
+
+
+def schur_solve_count(rec):
+    """The Schur solves of a recorded pipeline run: the LM iterations of its
+    BA stages that ran the 'schur' solver ('auto' solves a small problem
+    densely)."""
+    if len(rec.results) != len(rec.solves):
+        raise AssertionError(f"{len(rec.results)} lm_solve calls for {len(rec.solves)} BA stages")
+    return sum(s["iterations"] for s, r in zip(rec.solves, rec.results) if r["solver"] == "schur")
+
+
+def device_costs(device, fn):
+    """fn() once more under torch.profiler with CUDA activity only (device
+    time: the sum of its GPU kernels' durations; without CPU activity the
+    profiler adds little host time) and CUDA's sync debug mode on (one
+    warning per synchronising operation it detects). Returns (device s, GPU
+    kernels, syncs, wall s)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught, profile(activities=[ProfilerActivity.CUDA]) as prof:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            fn()
+            sync(device)
+            wall = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e6, len(kernels), syncs, wall
+
+
+def without_obj_loc(ip):
+    import numpy as np
+
+    from caliscope_tpu_torch.observations import ImagePoints
+
+    return ImagePoints(ip.sync_index, ip.cam_id, ip.object_id, ip.keypoint_id, ip.img_xy,
+                       np.full((len(ip), 3), np.nan), ip.frame_time)
+
+
+@contextmanager
+def epipolar_stage_clock(seconds):
+    """Wall seconds (synchronised) and calls of the epipolar bootstrap's
+    steps, summed into `seconds` while the block runs."""
+    import torch
+
+    import caliscope_tpu_torch.solvers.epipolar as PE
+
+    saved = {name: getattr(PE, name) for name in EPIPOLAR_PARTS}
+
+    def clocked(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if "device" in kwargs:
+                sync(torch.device(kwargs["device"]))
+            spent, calls = seconds.get(name, (0.0, 0))
+            seconds[name] = (spent + time.perf_counter() - t0, calls + 1)
+            return out
+        return run
+
+    for name, fn in saved.items():
+        setattr(PE, name, clocked(name, fn))
+    try:
+        yield seconds
+    finally:
+        for name, fn in saved.items():
+            setattr(PE, name, fn)
+
+
+@contextmanager
+def samples_drawn_on_the_cpu():
+    """The RANSACs draw their samples from the CPU's generator on every
+    device, so that a card run and a CPU run draw the same ones."""
+    import caliscope_tpu_torch.ops.epipolar as TE
+
+    draw = TE.sample_indices
+    TE.sample_indices = lambda mask, n, k, seed: draw(mask.cpu(), n, k, seed).to(mask.device)
+    try:
+        yield
+    finally:
+        TE.sample_indices = draw
+
+
+def markerless_pipeline(device, ring, ring_ip):
+    """(a): default_ring_scene(8, 600) without obj_loc through
+    calibrate_extrinsics on the card. Returns (Schur launches, the run, the
+    similarity onto the truth, its image points)."""
+    import numpy as np
+    import torch
+
+    from caliscope_tpu_torch.ops.lie import rotation_geodesic_angle_host
+    from caliscope_tpu_torch.ops.similarity import SimilarityParams, umeyama
+    from caliscope_tpu_torch.pipelines import calibrate_extrinsics
+    from caliscope_tpu_torch.solvers import fused_schur as FS
+    from caliscope_tpu_torch.synthetic.camera_synthesizer import strip_extrinsics
+    from caliscope_tpu_torch.synthetic.factories import default_ring_scene
+    from caliscope_tpu_torch.volume import CaptureVolume
+
+    ip = without_obj_loc(ring_ip)
+    cameras = strip_extrinsics(ring.cameras)
+    rec, parts = PipelineRecorder(), {}
+    FS.schur_s_rhs.launches = 0  # counts from here on are the markerless pipeline's
+    with rec.patched(), epipolar_stage_clock(parts):
+        sync(device)
+        t0 = time.perf_counter()
+        run = calibrate_extrinsics(ip, cameras, None, device=device, progress=rec.progress)
+        sync(device)
+        seconds = time.perf_counter() - t0
+    launches = FS.schur_s_rhs.launches
+    volume = run.capture_volume
+    n_cams = len(ring.cameras.cameras)
+    stages = {k: round(v, 4) for k, v in rec.stage_seconds().items()}
+    log(f"markerless (a): default_ring_scene{PIPE_SCENE} without obj_loc, {len(ip)} observations: {seconds:.2f} s "
+        f"in all; stage wall seconds {json.dumps(stages)}")
+    log("markerless (a) bootstrap steps (wall s, calls): " + json.dumps({k: (round(v[0], 4), v[1]) for k, v in parts.items()}))
+    for solve, name in zip(rec.solves, ("linear BA", "robust BA", "final BA")):
+        log(f"markerless (a) {name}: " + json.dumps(solve))
+    posed_by_boot = len(rec.boot.camera_array.posed_cameras) if rec.boot is not None else 0
+    rmse = volume.reprojection_report.overall_rmse
+    _aligned, errors = align_to_truth(volume, ring.cameras)
+    center = lambda c: -c.rotation.T @ c.translation  # noqa: E731
+    posed = sorted(volume.camera_array.posed_cameras)
+    sim = umeyama(np.array([center(volume.camera_array.cameras[c]) for c in posed]),
+                  np.array([center(ring.cameras.cameras[c]) for c in posed]))
+    to_truth = SimilarityParams(float(sim[0]), sim[1].numpy(), sim[2].numpy())
+    max_rot = max(e[0] for e in errors.values())
+    max_center = max(e[1] for e in errors.values())
+    schur_solves = schur_solve_count(rec)
+    log(f"markerless (a): {posed_by_boot} of {n_cams} cameras posed by the epipolar bootstrap, final RMSE {rmse:.4f} px, "
+        f"against the truth after a similarity (with scale) rotation error max {max_rot:.5f} deg, center error max "
+        f"{max_center * 1e3:.4f} mm; schur_s_rhs launches {launches}, Schur solves {schur_solves}")
+    if posed_by_boot != n_cams or len(volume.camera_array.posed_cameras) != n_cams:
+        raise AssertionError(f"markerless (a): {posed_by_boot} of {n_cams} cameras posed")
+    if not rmse < MAX_FINAL_RMSE_PX:
+        raise AssertionError(f"markerless (a): final RMSE {rmse:.3f} px")
+    if len(errors) != n_cams or not (max_rot <= MAX_PIPE_ROTATION_DEG and max_center <= MAX_PIPE_CENTER_M):
+        raise AssertionError(f"markerless (a): rig off the truth: {errors}")
+    if len(rec.solves) != 3 or launches < 1 or launches != schur_solves:
+        raise AssertionError(f"markerless (a): schur_s_rhs launched {launches} times for {schur_solves} Schur solves")
+
+    device_s, n_kernels, syncs, again_s = device_costs(device, lambda: CaptureVolume.bootstrap(ip, cameras, device=device))
+    wall = stages["Bootstrapping poses"]
+    log(f"markerless (a) bootstrap: wall {wall:.3f} s (the pipeline's stage), {device_s:.4f} s of device time in "
+        f"{n_kernels} GPU kernels, so the device idle {100 * (1 - device_s / wall):.1f} % of the stage (torch.profiler, "
+        f"CUDA activity only, a second bootstrap: {again_s:.3f} s under it), {syncs} device->host synchronisations "
+        f"(CUDA sync debug mode, a lower bound)")
+
+    # the card against the port's own CPU run on a small ring, the same samples
+    small = default_ring_scene(*MARKERLESS_SMALL)
+    sip, scams = without_obj_loc(small.image_points_noisy()), strip_extrinsics(small.cameras)
+    rigs = {}
+    with samples_drawn_on_the_cpu():
+        for name, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            t0 = time.perf_counter()
+            rigs[name], errs = align_to_truth(calibrate_extrinsics(sip, scams, None, device=dev).capture_volume,
+                                              small.cameras)
+            log(f"markerless (a) {MARKERLESS_SMALL} on {dev.type}: {time.perf_counter() - t0:.2f} s, rotation error max "
+                f"{max(e[0] for e in errs.values()):.5f} deg, center error max {max(e[1] for e in errs.values()) * 1e3:.4f} mm")
+    gaps = []
+    for cid, g in rigs["card"].camera_array.posed_cameras.items():
+        c = rigs["cpu"].camera_array.cameras[cid]
+        gaps.append((float(np.degrees(rotation_geodesic_angle_host(g.rotation, c.rotation))),
+                     float(np.linalg.norm(g.rotation.T @ g.translation - c.rotation.T @ c.translation))))
+    gap_rot, gap_center = max(g[0] for g in gaps), max(g[1] for g in gaps)
+    log(f"markerless (a) {MARKERLESS_SMALL}: the card within {gap_rot:.3e} deg and {gap_center * 1e3:.4f} mm of the CPU run")
+    if len(gaps) != MARKERLESS_SMALL[0] or not (gap_rot <= CARD_VS_CPU_ROTATION_DEG and gap_center <= CARD_VS_CPU_CENTER_M):
+        raise AssertionError(f"markerless (a): the card's small rig differs from the CPU's: {gaps}")
+    return launches, run, to_truth, ip
+
+
+class NamedPoints:
+    """The tracker surface the exports read, for the board's corners."""
+
+    name = "RING"
+    wireframe = None
+
+    def get_point_name(self, keypoint_id):
+        return f"corner_{int(keypoint_id):02d}"
+
+
+def dropped_in_runs(ip, fraction, rng):
+    """`ip` without about `fraction` of its rows, dropped per (camera,
+    object, keypoint) track in runs of 1-3 consecutive frames."""
+    import numpy as np
+
+    n_sync = int(ip.sync_index.max()) + 1
+    track = (ip.cam_id * (int(ip.object_id.max()) + 1) + ip.object_id) * (int(ip.keypoint_id.max()) + 1) + ip.keypoint_id
+    n_tracks = int(track.max()) + 1
+    drop = np.zeros((n_tracks, n_sync + 3), bool)
+    n_runs = int(fraction * len(ip) / 2.0)
+    starts = rng.integers(0, n_sync, n_runs)
+    lengths = rng.integers(1, 4, n_runs)
+    tracks = rng.integers(0, n_tracks, n_runs)
+    for k in range(3):
+        sel = lengths > k
+        drop[tracks[sel], starts[sel] + k] = True
+    return ip.select(~drop[track, ip.sync_index])
+
+
+def reconstruction_from(device, ring, volume, to_truth, ip):
+    """(b): (a)'s rig and the scene's observations with ~5 % dropped in
+    seeded runs -> reconstruct_xyz, WorldPoints.smooth, write_blender_scene."""
+    import tempfile
+
+    import numpy as np
+
+    from caliscope_tpu_torch.export import write_blender_scene
+    from caliscope_tpu_torch.observations import ImagePoints, WorldPoints
+    from caliscope_tpu_torch.reconstruction import reconstruct_xyz
+
+    kept = dropped_in_runs(ip, DROP_FRACTION, np.random.default_rng(SEED))
+    steps = {}
+    fill, triangulate = ImagePoints.fill_gaps, ImagePoints.triangulate
+
+    def clocked(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync(device)
+            steps[name] = time.perf_counter() - t0
+            return out
+        return run
+
+    tracker = NamedPoints()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        ImagePoints.fill_gaps, ImagePoints.triangulate = clocked("fill_gaps", fill), clocked("triangulate", triangulate)
+        try:
+            t0 = time.perf_counter()
+            reconstruct_xyz(kept, volume.camera_array, tracker, out, device=device)
+            steps["reconstruct_xyz"] = time.perf_counter() - t0
+        finally:
+            ImagePoints.fill_gaps, ImagePoints.triangulate = fill, triangulate
+        n_filled = len(kept.fill_gaps(3)) - len(kept)
+        world = WorldPoints.from_csv(out / "xyz_RING.csv")
+        t0 = time.perf_counter()
+        smoothed = world.smooth(fps=30.0, cutoff_hz=6.0, device=device)
+        sync(device)
+        steps["smooth"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        script = write_blender_scene(volume.camera_array, smoothed, out / "scene.py", tracker=tracker)
+        steps["write_blender_scene"] = time.perf_counter() - t0
+        trc = (out / "xyz_RING.trc").read_bytes().decode().split("\r\n")
+        blender_ok = script.exists() and script.with_suffix(".json").exists()
+    log(f"markerless (b): {len(ip) - len(kept)} of {len(ip)} observations dropped in runs of 1-3 frames, {n_filled} rows "
+        f"filled back, {len(world)} points triangulated; seconds {json.dumps({k: round(v, 4) for k, v in steps.items()})}")
+    if not n_filled > 0 or not blender_ok:
+        raise AssertionError(f"markerless (b): {n_filled} rows filled, Blender scene written: {blender_ok}")
+    # the TRC read back equals the xyz written (to its 6 decimals)
+    names = [c for c in trc[3].split("\t")[2:] if c]
+    body = [r.split("\t") for r in trc[6:] if r]
+    at = {(int(s), int(k)): x for s, k, x in zip(world.sync_index, world.keypoint_id, world.xyz)}
+    mismatch = 0
+    for row in body:
+        for j, name in enumerate(names):
+            xyz = at.get((int(row[0]), int(name.split("_")[1])))
+            cells = row[2 + 3 * j: 5 + 3 * j]
+            want = ["" if xyz is None else str(round(float(v), 6)) for v in (xyz if xyz is not None else (0, 0, 0))]
+            mismatch += cells != want
+    log(f"markerless (b): TRC {len(body)} frames x {len(names)} markers read back, {mismatch} cells off the xyz written")
+    if mismatch or len(body) != len(np.unique(world.sync_index)):
+        raise AssertionError("markerless (b): the TRC file does not hold the xyz written")
+    # triangulation error to the truth after (a)'s similarity
+    truth = ring.world_points()
+    tkey = {(int(s), int(o), int(k)): x for s, o, k, x in zip(truth.sync_index, truth.object_id, truth.keypoint_id, truth.xyz)}
+    errs = np.array([np.linalg.norm(a - tkey[(int(s), int(o), int(k))]) for s, o, k, a in
+                     zip(world.sync_index, world.object_id, world.keypoint_id, to_truth.apply(world.xyz))])
+    med = float(np.median(errs))
+    log(f"markerless (b): triangulation error to the truth after (a)'s similarity median {med * 1e3:.4f} mm, "
+        f"p95 {np.percentile(errs, 95) * 1e3:.4f} mm")
+    if not med < MAX_RECON_MEDIAN_M:
+        raise AssertionError(f"markerless (b): median triangulation error {med * 1e3:.3f} mm")
+
+
+def randomized_bn(model):
+    """BN with random running statistics, as tests/test_rtmpose_arch.py:33-37."""
+    import torch
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0, 0.2)
+                m.running_var.uniform_(0.5, 1.5)
+    return model
+
+
+def pose_inference(device, smi_line):
+    """(c): RTMPose-m with the Halpe26 card, seeded random weights, exported,
+    serialized, re-parsed and run through OnnxTorchSession on the card."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import caliscope_tpu_torch.pose as pose
+    from caliscope_tpu_torch.pose.decode import decode_simcc
+    from caliscope_tpu_torch.pose.model_card import ModelCard
+    from caliscope_tpu_torch.pose.onnx_proto import parse_model, write_model
+    from caliscope_tpu_torch.pose.onnx_torch import OnnxTorchSession
+    from caliscope_tpu_torch.pose.onnx_tracker import OnnxTracker
+    from caliscope_tpu_torch.pose.rtmpose_arch import RTMPose
+
+    card_path = Path(pose.__file__).parent / "model_cards" / POSE_CARD
+    card = ModelCard.from_toml(card_path)
+    hw = (card.input_height, card.input_width)
+    torch.manual_seed(SEED)
+    model = randomized_bn(RTMPose(POSE_VARIANT, len(card.point_name_to_id), hw).eval()).to(device)
+    t0 = time.perf_counter()
+    raw = write_model(model.export_onnx_model())
+    sess = OnnxTorchSession(parse_model(raw), device=device)
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    x = torch.randn(8, 3, *hw, device=device, generator=torch.Generator(device=device).manual_seed(SEED))
+    with torch.no_grad():
+        want = model(x)
+    got = sess.forward({"input": x})
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    close = all(torch.allclose(g, w, atol=POSE_ATOL, rtol=POSE_RTOL) for g, w in zip(got, want))
+    kg, _ = decode_simcc(*got)
+    kw, _ = decode_simcc(*want)
+    kp_gap = float((kg - kw).abs().max())
+    log(f"markerless (c): RTMPose-{POSE_VARIANT} with the {card.name} card ({len(card.point_name_to_id)} keypoints, {hw[0]}x{hw[1]}, "
+        f"{sum(p.numel() for p in model.parameters())} parameters, {len(raw)} bytes of ONNX, {len(sess.graph.nodes)} nodes) "
+        f"exported and parsed in {build_s:.2f} s; OnnxTorchSession vs the module's forward on the card, batch 8: max "
+        f"|diff| simcc_x {errs[0]:.3e}, simcc_y {errs[1]:.3e} (atol {POSE_ATOL}, rtol {POSE_RTOL}); decoded keypoints "
+        f"within {kp_gap:.4f} px")
+    if not close or not kp_gap <= 0.51:
+        raise AssertionError("markerless (c): the executor disagrees with the module's forward")
+    times = {}
+    for b in (1, 8):
+        xb = x[:b].contiguous()
+        times[f"executor_b{b}_ms"] = time_ms(lambda: sess.forward({"input": xb}), reps=10, rounds=5)
+        with torch.no_grad():
+            times[f"module_b{b}_ms"] = time_ms(lambda: model(xb), reps=10, rounds=5)
+    log(f"markerless (c): ms a call (CUDA events, median of 5 x 10 warm calls) {json.dumps({k: round(v, 4) for k, v in times.items()})} [{smi_line}]")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / card.model_path.name).write_bytes(raw)
+        tracker = OnnxTracker(ModelCard.from_toml(card_path, models_dir=Path(tmp)), device=device)
+        calls = [0]
+        forward = tracker._session.forward
+
+        def counted(feeds):
+            calls[0] += 1
+            return forward(feeds)
+
+        tracker._session.forward = counted
+        rng = np.random.default_rng(SEED)
+        base = rng.integers(0, 200, (90, 160, 3)).astype(np.uint8)
+        frames = [np.ascontiguousarray(np.roll(np.kron(base, np.ones((8, 8, 1), np.uint8)), 16 * i, axis=1))
+                  for i in range(POSE_FRAMES)]
+        tracker.get_points(frames[0], cam_id=0)
+        calls[0] = 0
+        per_frame = []
+        for f in frames:
+            sync(device)
+            t0 = time.perf_counter()
+            tracker.get_points(f, cam_id=0)
+            sync(device)
+            per_frame.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(device)
+    log(f"markerless (c): OnnxTracker.get_points on {POSE_FRAMES} frames of 1280x720: median {statistics.median(per_frame):.3f} "
+        f"ms a frame (min {min(per_frame):.3f}, max {max(per_frame):.3f}), {calls[0] / POSE_FRAMES:.2f} inferences a frame; "
+        f"peak device memory {peak / 2**20:.1f} MiB [{smi_line}]")
+
+
+def blob_detector(in_h, in_w):
+    """The JAX suite's hand-weighted SimCC network that localizes three
+    pure-color blobs (tests/test_onnx_engine.py:133-155), built with the
+    port's GraphBuilder."""
+    import numpy as np
+
+    from caliscope_tpu_torch.pose.torch_onnx import GraphBuilder
+
+    b = GraphBuilder("input", (1, 3, in_h, in_w))
+    w = np.zeros((3, 3, 1, 1), np.float32)
+    for k in range(3):
+        w[k, k, 0, 0] = 1.0 / 255.0
+    conv = b.node("Conv", ["input", b.init(w, "pick"), b.init(np.full(3, -0.35, np.float32), "bias")],
+                  kernel_shape=[1, 1], strides=[1, 1], pads=[0, 0, 0, 0])[0]
+    act = b.node("Relu", [conv])[0]
+    gain = b.init(np.asarray(90.0, np.float32), "gain")
+    mean_x = b.node("ReduceMean", [act, b.init(np.asarray([2], np.int64), "ax_h")], keepdims=0)[0]
+    mean_y = b.node("ReduceMean", [act, b.init(np.asarray([3], np.int64), "ax_w")], keepdims=0)[0]
+    scales = b.init(np.asarray([1.0, 1.0, 2.0], np.float32), "up2")
+    for src, name in ((b.node("Mul", [mean_x, gain])[0], "simcc_x"), (b.node("Mul", [mean_y, gain])[0], "simcc_y")):
+        b.node("Resize", [src, "", scales], mode="linear")
+        b.graph.nodes[-1].outputs = [name]
+    return b.finish(["simcc_x", "simcc_y"])
+
+
+def render_dots(size, pts_px, radius=7):
+    """Dark BGR frame with one solid colored disc per joint
+    (tests/test_onnx_engine.py:157-166)."""
+    import numpy as np
+
+    colors = np.array([[255, 40, 40], [40, 255, 40], [40, 40, 255]], float)
+    W, H = size
+    frame = np.full((H, W, 3), 15, np.uint8)
+    yy, xx = np.mgrid[0:H, 0:W]
+    for k, (x, y) in enumerate(pts_px):
+        frame[(xx - x) ** 2 + (yy - y) ** 2 <= radius**2] = colors[k]
+    return frame
+
+
+def joint_path(n_frames, seed=SEED):
+    """(n_frames, 3, 3): a 3-joint 'leg' on a seeded smooth path that fills
+    a 1 m cube, turning as it goes (a volume, not a line)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.0, 1.0, n_frames)
+    freq, phase = rng.uniform(1.0, 2.5, 3), rng.uniform(0, 2 * np.pi, 3)
+    root = 0.35 * np.sin(2 * np.pi * freq[None, :] * t[:, None] + phase[None, :]) + np.array([0.0, 0.0, 0.5])
+    leg = np.array([[0.0, 0.0, 0.2], [0.05, 0.0, -0.05], [0.1, 0.0, -0.3]])
+    c, s = np.cos(2 * np.pi * t), np.sin(2 * np.pi * t)
+    z, o = np.zeros_like(c), np.ones_like(c)
+    R = np.stack([np.stack([c, -s, z], -1), np.stack([s, c, z], -1), np.stack([z, z, o], -1)], 1)
+    return root[:, None, :] + np.einsum("fij,kj->fki", R, leg)
+
+
+def blob_chain(device):
+    """(d): rendered frames -> OnnxTracker (the blob detector) -> ImagePoints
+    -> markerless calibrate_extrinsics -> reconstruct_xyz to a TRC file.
+    Returns the Schur kernel's launches."""
+    import tempfile
+
+    import numpy as np
+
+    from caliscope_tpu_torch.observations import ImagePoints, WorldPoints
+    from caliscope_tpu_torch.ops.similarity import umeyama
+    from caliscope_tpu_torch.pipelines import calibrate_extrinsics
+    from caliscope_tpu_torch.pose.model_card import ModelCard
+    from caliscope_tpu_torch.pose.onnx_proto import save_model
+    from caliscope_tpu_torch.pose.onnx_tracker import OnnxTracker
+    from caliscope_tpu_torch.reconstruction import reconstruct_xyz
+    from caliscope_tpu_torch.solvers import fused_schur as FS
+    from caliscope_tpu_torch.synthetic.camera_synthesizer import CameraSynthesizer, LensProfile, strip_extrinsics
+
+    lens = LensProfile(size=(640, 480), focal=520.0, distortions=(-0.05, 0.01, 0.0, 0.0, 0.0))
+    cameras = CameraSynthesizer(lens).add_ring(CHAIN_CAMERAS, radius=2.2, height=0.6).build()
+    joints = joint_path(CHAIN_FRAMES)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        save_model(blob_detector(*CHAIN_MODEL_HW), out / "blob3.onnx")
+        (out / "blob3.toml").write_text(
+            '[model]\nname = "blob3"\nmodel_path = "blob3.onnx"\nformat = "simcc"\n'
+            f"input_size = [{CHAIN_MODEL_HW[1]}, {CHAIN_MODEL_HW[0]}]\nconfidence_threshold = 0.3\n\n"
+            "[points]\nhead = 0\nhip = 1\nfoot = 2\n"
+        )
+        tracker = OnnxTracker(ModelCard.from_toml(out / "blob3.toml"), device=device)
+        rows, t0 = [], time.perf_counter()
+        for s in range(CHAIN_FRAMES):
+            for cid, cam in cameras.cameras.items():
+                px = np.asarray(cam.project_points(joints[s]))
+                pkt = tracker.get_points(render_dots(cam.size, px), cam_id=cid)
+                rows += [(s, cid, int(k), *xy) for k, xy in zip(pkt.keypoint_id, pkt.img_loc)]
+        track_s = time.perf_counter() - t0
+        rows = np.array(rows)
+        ip = ImagePoints(rows[:, 0], rows[:, 1], np.zeros(len(rows)), rows[:, 2], rows[:, 3:5])
+        rec = PipelineRecorder()
+        FS.schur_s_rhs.launches = 0  # counts from here on are the chain's
+        t0 = time.perf_counter()
+        with rec.patched():
+            run = calibrate_extrinsics(ip, strip_extrinsics(cameras), None, device=device)
+        calib_s = time.perf_counter() - t0
+        launches, solves = FS.schur_s_rhs.launches, schur_solve_count(rec)
+        volume = run.capture_volume
+        t0 = time.perf_counter()
+        reconstruct_xyz(ip, volume.camera_array, tracker, out, device=device)
+        recon_s = time.perf_counter() - t0
+        world = WorldPoints.from_csv(out / "xyz_BLOB3.csv")
+        trc_rows = len((out / "xyz_BLOB3.trc").read_text().splitlines()) - 6
+    center = lambda c: -c.rotation.T @ c.translation  # noqa: E731
+    ids = sorted(volume.camera_array.posed_cameras)
+    sc, R, t = umeyama(np.array([center(volume.camera_array.cameras[c]) for c in ids]),
+                       np.array([center(cameras.cameras[c]) for c in ids]))
+    aligned = float(sc) * (R.numpy() @ world.xyz.T).T + t.numpy()
+    errs = np.linalg.norm(aligned - joints[world.sync_index, world.keypoint_id], axis=1)
+    med = float(np.median(errs))
+    log(f"markerless (d): {CHAIN_CAMERAS} cameras x {CHAIN_FRAMES} frames of 640x480 through OnnxTracker in {track_s:.2f} s "
+        f"({len(ip)} of {CHAIN_CAMERAS * CHAIN_FRAMES * 3} joints found), markerless calibrate_extrinsics {calib_s:.2f} s "
+        f"({len(ids)} of {CHAIN_CAMERAS} cameras posed, RMSE {volume.reprojection_report.overall_rmse:.4f} px), reconstruct_xyz "
+        f"{recon_s:.2f} s ({len(world)} points, {trc_rows} TRC frames); 3D joint error after a similarity median "
+        f"{med * 1e3:.3f} mm; BA solvers {[r['solver'] for r in rec.results]} (the 'auto' policy), schur_s_rhs launches "
+        f"{launches}, Schur solves {solves}")
+    if len(ids) != CHAIN_CAMERAS or not med < MAX_CHAIN_MEDIAN_M or trc_rows != len(np.unique(world.sync_index)):
+        raise AssertionError(f"markerless (d): {len(ids)} cameras posed, median joint error {med:.4f} m, "
+                             f"{trc_rows} TRC frames")
+    if launches != solves:
+        raise AssertionError(f"markerless (d): schur_s_rhs launched {launches} times for {solves} Schur solves")
+    return launches
+
+
+def markerless_phase(device, smi_line, ring, ring_ip):
+    """(a)-(d). Returns the Schur kernel's launches on (a) and (d)."""
+    t0 = time.perf_counter()
+    launches, run, to_truth, ip = markerless_pipeline(device, ring, ring_ip)
+    log(f"markerless (a): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    reconstruction_from(device, ring, run.capture_volume, to_truth, ip)
+    log(f"markerless (b): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    pose_inference(device, smi_line)
+    log(f"markerless (c): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    chain_launches = blob_chain(device)
+    log(f"markerless (d): {time.perf_counter() - t0:.2f} s")
+    return launches + chain_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2152,13 +2688,19 @@ def main() -> int:
     entry["launches"] = launches + pipe_launches + constrained_launches
     entry["launches_by_path"] = {
         "ba_slice": launches, "pipeline": pipe_launches, "constrained_and_sparse_pipelines": constrained_launches,
-        "intrinsics_from_frames": 0, "chessboard": 0, "aruco": 0,
+        "intrinsics_from_frames": 0, "chessboard": 0, "aruco": 0, "markerless": 0,
     }
     t0 = time.perf_counter()
     intr_launches, tracker_shapes = intrinsic_phase(device, peaks)
     log(f"intrinsic phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    markerless_launches = markerless_phase(device, smi_line, ring, ring_ip)
+    log(f"markerless phase: {time.perf_counter() - t0:.2f} s")
+    entry["launches"] += markerless_launches
+    entry["launches_by_path"]["markerless"] = markerless_launches
     for i, e in enumerate(detect_entries):
-        e["launches_by_path"] = {"detection_slice": e["launches"]} | {path: n[i] for path, n in intr_launches.items()}
+        e["launches_by_path"] = ({"detection_slice": e["launches"]} | {path: n[i] for path, n in intr_launches.items()}
+                                 | {"markerless": 0})
         e["launches"] = sum(e["launches_by_path"].values())
         e["tracker_shapes"] = tracker_shapes[e["name"]]
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, the kernels' build included")

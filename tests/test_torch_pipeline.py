@@ -160,7 +160,8 @@ def test_cancellation_between_stages(runs):
 def test_constraints_and_markerless_input_are_not_ported(runs):
     """Constraints are ported: the board truss runs every stage and holds
     the board to the JAX package's 2 mm rigidity limit. Markerless input
-    (the epipolar bootstrap, item 22) still raises."""
+    is ported too: it reaches the epipolar bootstrap
+    (tests/test_torch_epipolar_bootstrap.py runs it end to end)."""
     scene, _j, (pip, pcams), *_ = runs
     from caliscope_tpu_torch.constraints import ConstraintSet
 
@@ -171,8 +172,15 @@ def test_constraints_and_markerless_input_are_not_ported(runs):
     assert run.capture_volume.constraints == truss
     assert 0 < run.capture_volume.rigidity_report().rmse_mm < 2.0
     bare = convert.image_points({f: getattr(pip, f) for f in ("sync_index", "cam_id", "object_id", "keypoint_id", "img_xy")})
-    with pytest.raises(NotImplementedError, match="item 22"):
-        calibrate_extrinsics(bare, pcams, None, device="cpu")
+    import caliscope_tpu_torch.solvers.epipolar as PE
+
+    def reached(*args, **kwargs):
+        raise LookupError("epipolar bootstrap reached")
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(PE, "build_epipolar_pose_network", reached)
+        with pytest.raises(LookupError, match="epipolar bootstrap reached"):
+            calibrate_extrinsics(bare, pcams, None, device="cpu")
     # placeholder intrinsics on markerless data: the guard refuses first, as in the JAX package
     blind = port_cameras(strip_intrinsics(strip_extrinsics(default_ring_scene(4, 2).cameras)))
     with pytest.raises(CalibrationError, match="placeholder intrinsics"):

@@ -303,13 +303,26 @@ def test_repair_re_resects_a_mis_posed_camera(scenes, jax_runs, jax_samples):
     assert tfix.reprojection_report.by_camera[2] < 1.0
 
 
-def test_markerless_bootstrap_is_not_ported(scenes):
+def test_markerless_bootstrap_is_not_ported(scenes, monkeypatch):
+    """Markerless input is ported now: build_pose_network and the bootstrap
+    hand it to the epipolar bootstrap (held against the JAX package in
+    tests/test_torch_epipolar_bootstrap.py)."""
+    import caliscope_tpu_torch.solvers.epipolar as PE
+
     _, _, pip, pcams = scenes["ring"]
     bare = convert.image_points({f: getattr(pip, f) for f in ("sync_index", "cam_id", "object_id", "keypoint_id", "img_xy")})
-    with pytest.raises(NotImplementedError, match="item 22"):
+    seen = []
+
+    def reached(ip, cams, device=None):
+        seen.append(device)
+        raise LookupError("epipolar bootstrap reached")
+
+    monkeypatch.setattr(PE, "build_epipolar_pose_network", reached)
+    with pytest.raises(LookupError, match="epipolar bootstrap reached"):
         TP.build_pose_network(bare, pcams, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 22"):
+    with pytest.raises(LookupError, match="epipolar bootstrap reached"):
         PortVolume.bootstrap(bare, pcams, device="cpu")
+    assert [str(d) for d in seen] == ["cpu", "cpu"]
 
 
 def test_quaternion_and_rotation_host_twins_match_jax(rng):

@@ -8,6 +8,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from caliscope_tpu_torch import convert
@@ -58,3 +59,18 @@ def assert_same_rig(port_cameras_, jax_cameras_, atol):
         if jc.is_posed:
             np.testing.assert_allclose(tc.rotation, jc.rotation, atol=atol, rtol=0)
             np.testing.assert_allclose(tc.translation, jc.translation, atol=atol, rtol=0)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """torch on one intra-op thread for the test: the port's small CPU ops
+    (one frame, one RANSAC at a time) gain nothing from a thread pool, and
+    under xdist's parallel workers a pool per worker spins against the
+    others. The worker's setting is restored after the test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
