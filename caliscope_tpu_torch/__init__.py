@@ -47,16 +47,25 @@ stack (`pose/`: reader and writer, the RTMPose family, the executor
 `OnnxTorchSession`, decoding and `OnnxTracker`). Its BA stages run through
 the Schur kernel; the network runs as eager torch ops on the device.
 
+Slice 7 carries vertical ("up") estimation (`estimators/`: the GeoCalib
+perspective-field network run through the ONNX executor, the gravity fit,
+the per-camera aggregation) with the model downloader
+(`pose/model_download.py`), and bundle adjustment sharded over
+torch.distributed, one process a device (`parallel/`, `lm_solve(mesh=...)`
+and the `BAConfig.shard` policy); kernel 1 runs on each rank's points.
+
 Devices: every entry point (`calibrate_extrinsics`, `run_intrinsic_calibration`,
 `calibrate_intrinsics`, `solve_intrinsics`, `CaptureVolume`, `lm_solve`,
 `ImagePoints.triangulate`, `WorldPoints.smooth`, `reconstruct_xyz`, the
 three target trackers, `OnnxTracker`, `OnnxTorchSession`, `detect_markers`,
-`detect_x_corners_device`) runs on the CUDA device unless the caller passes
+`detect_x_corners_device`, `fit_gravity`, the vertical estimators,
+`make_obs_mesh`) runs on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device it raises instead of falling back.
 The solves' float dtype follows the device unless given: float32 on CUDA,
 float64 on the CPU (the JAX package's x64 parity convention). The intrinsic
 solve is the exception, float64 on both: in float32 its LM never meets the
-reference's stop test (solvers/intrinsics.py). Detection runs in float32 on
+reference's stop test (solvers/intrinsics.py), and so is the gravity fit
+(estimators/vertical_solver.py), for the same reason. Detection runs in float32 on
 both, as the reference's detection does.
 
 Process-global side effect: importing this package disables TF32 for

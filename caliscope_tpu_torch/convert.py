@@ -205,3 +205,14 @@ def rtmpose(state_dict: Mapping[str, Any], variant: str, n_keypoints: int, input
     model = RTMPose(variant=variant, n_keypoints=n_keypoints, input_hw=input_hw)
     model.load_state_dict({k: torch.as_tensor(v).cpu() for k, v in state_dict.items()})
     return model.eval()
+
+
+def geocalib(state_dict: Mapping[str, Any], variant: str = "tiny", decoder_width: int = 64):
+    """A GeoCalibFields of the JAX package's geocalib_arch (its state_dict(),
+    with the constructor's arguments) -> the port's GeoCalibFields with
+    those weights, in eval mode on the CPU."""
+    from caliscope_tpu_torch.estimators.geocalib_arch import GeoCalibFields
+
+    model = GeoCalibFields(variant=variant, decoder_width=decoder_width)
+    model.load_state_dict({k: torch.as_tensor(v).cpu() for k, v in state_dict.items()})
+    return model.eval()

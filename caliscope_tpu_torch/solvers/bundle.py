@@ -1,6 +1,6 @@
 """Bundle adjustment as Levenberg-Marquardt on three observation layouts.
 
-Port of caliscope_tpu/solvers/bundle.py, single placement:
+Port of caliscope_tpu/solvers/bundle.py:
 
 - Layouts. The dense (C, P) grid with the long point axis minor
   (`BADenseProblem`, `make_dense_problem`), for problems whose (point,
@@ -41,9 +41,18 @@ default), or as the caller says (`fused_schur=True/False`). The kernel takes
 neither constrained nor sparse problems: those use the explicit Schur
 factors in plain tensor operations, and `fused_schur=True` raises there.
 
-Not ported: observation-axis sharding over several devices and baking the
-problem into the program (`BAConfig.shard='always'`, `bake_problem=True`,
-`lm_solve(mesh=...)` raise NotImplementedError naming ROADMAP.md item 24).
+Sharding: `lm_solve(mesh=...)`, or the `BAConfig.shard` policy under an
+initialised torch.distributed process group, solves a problem split over
+the ranks (parallel/sharded.py): the dense layout's point axis or the sparse
+layout's observation rows. Every rank runs this loop on its shard, and the
+plan's mesh all-reduces each sum over the sharded axis (`_reduce`): camera
+sums and the cost on both layouts, point sums on the sparse one, scalars
+over points on the dense one. On the dense layout the fused kernel runs on
+each rank's points, whose S and right-hand side add up over the ranks.
+
+Not ported: baking the problem into the program (`bake_problem=True` raises
+NotImplementedError naming ROADMAP.md item 24b; its torch counterpart is a
+CUDA graph of the LM iteration).
 """
 
 from __future__ import annotations
@@ -113,9 +122,14 @@ class BAConfig:
     init_lambda: float = 1e-4
     # 'auto' picks dense when 9C + 3P <= dense_cutoff
     dense_cutoff: int = 6000
-    # observation-axis sharding and baked problems: only the single-placement
-    # default runs ('always' and bake_problem=True raise, item 24)
+    # sharding over an initialised torch.distributed process group:
+    #   'auto'   — when the group has more than one rank and the problem has
+    #              at least shard_min_obs observations
+    #   'always' — whenever a group is initialised (one rank included)
+    #   'never'  — single placement
     shard: str = "auto"
+    shard_min_obs: int = 20_000
+    # baking the problem into the program is not ported (raises, item 24b)
     bake_problem: bool = False
     # sparse problems' per-observation layout: 'auto' | 'always' | 'never'
     obs_minor: str = "auto"
@@ -145,6 +159,7 @@ class BAProblem:
     con_target: torch.Tensor  # (Q,)
     con_weight: torch.Tensor  # (Q,)
     any_fisheye: bool = True
+    shard: Optional[object] = None  # this rank's rows of a sharded problem (parallel.sharded.Shard)
 
     @property
     def n_cameras(self) -> int:
@@ -179,6 +194,7 @@ class BADenseProblem:
     con_target: torch.Tensor  # (Q,)
     con_weight: torch.Tensor  # (Q,)
     any_fisheye: bool = True
+    shard: Optional[object] = None  # this rank's points of a sharded problem (parallel.sharded.Shard)
 
     @property
     def n_cameras(self) -> int:
@@ -187,6 +203,11 @@ class BADenseProblem:
     @property
     def n_points(self) -> int:
         return self.uv.shape[2]
+
+    @property
+    def n_obs(self) -> int:
+        """Observation slots, the grid's size (as the JAX package counts)."""
+        return self.uv.shape[0] * self.uv.shape[2]
 
     @property
     def n_constraints(self) -> int:
@@ -349,7 +370,13 @@ class _Plan:
     point, then camera) per point and per (point, camera) key; cam_onehot:
     the sparse rows' cameras as a (C, N) one-hot; con_order / con_offsets:
     the constraint slots (Q*8, in slot order) sorted stably by point, and
-    their offsets per point."""
+    their offsets per point.
+
+    On a sharded problem: mesh, and whether it shards the dense layout's
+    points (this rank's from point_offset on; constraint slots of other
+    ranks' points sort past the last offset, so they add nothing here) or
+    the sparse layout's observation rows. rows_mesh / points_mesh: the mesh
+    where it shards that axis, else None."""
 
     n_points: int
     pt_offsets: Optional[torch.Tensor] = None
@@ -357,6 +384,17 @@ class _Plan:
     cam_onehot: Optional[torch.Tensor] = None
     con_order: Optional[torch.Tensor] = None
     con_offsets: Optional[torch.Tensor] = None
+    mesh: Optional[object] = None
+    shards_points: bool = False
+    point_offset: int = 0
+
+    @property
+    def rows_mesh(self):
+        return None if self.shards_points else self.mesh
+
+    @property
+    def points_mesh(self):
+        return self.mesh if self.shards_points else None
 
 
 def _offsets(keys, n: int):
@@ -365,7 +403,13 @@ def _offsets(keys, n: int):
 
 
 def _make_plan(problem, P: int, dtype) -> _Plan:
+    """The plan of a solve over P points (this rank's, on a point-sharded
+    dense problem)."""
     plan = _Plan(P)
+    if problem.shard is not None:
+        plan.mesh = problem.shard.mesh
+        plan.shards_points = isinstance(problem, BADenseProblem)
+        plan.point_offset = problem.shard.offset
     if isinstance(problem, BAProblem):
         C = problem.n_cameras
         plan.pt_offsets = _offsets(problem.pt_idx, P)
@@ -374,9 +418,32 @@ def _make_plan(problem, P: int, dtype) -> _Plan:
         plan.cam_onehot = (problem.cam_idx[None, :] == cams[:, None]).to(dtype)
     if problem.n_constraints:
         slots = torch.cat([problem.con_pa_idx, problem.con_pb_idx], 1).reshape(-1)
+        if plan.points_mesh is not None:  # other ranks' points -> segment P, dropped
+            local = slots - plan.point_offset
+            slots = torch.where((local >= 0) & (local < P), local, P)
         plan.con_order = torch.argsort(slots, stable=True)
-        plan.con_offsets = _offsets(slots, P)
+        plan.con_offsets = _offsets(slots, P)[: P + 1]
     return plan
+
+
+def _reduce(mesh, *tensors):
+    """The tensors summed over the mesh's ranks in one all-reduce, or as
+    they are without a mesh: one tensor for one, else a tuple."""
+    out = tensors if mesh is None else mesh.sum(*tensors)
+    return out[0] if len(tensors) == 1 else tuple(out)
+
+
+def _at_slots(problem, plan: Optional[_Plan], v):
+    """A point vector v (P,3) at the constraint slots, (Q,8,3): on a
+    point-sharded problem each slot's owner contributes it and the others
+    zero, summed over the ranks (exact: one term is nonzero)."""
+    slots = torch.cat([problem.con_pa_idx, problem.con_pb_idx], 1)
+    if plan is None or plan.points_mesh is None:
+        return v[slots]
+    local = slots - plan.point_offset
+    owned = (local >= 0) & (local < v.shape[0])
+    vals = torch.where(owned[..., None], v[torch.clamp(local, 0, v.shape[0] - 1)], 0.0)
+    return plan.points_mesh.sum(vals)[0]
 
 
 def _segment_sum(data, offsets):
@@ -385,7 +452,8 @@ def _segment_sum(data, offsets):
 
 
 def _con_scatter(plan: _Plan, vals):
-    """(Q*8, k) values in constraint-slot order -> (P, k) sums per point."""
+    """(Q*8, k) values in constraint-slot order -> (P, k) sums per point
+    (this rank's points on a point-sharded problem)."""
     return _segment_sum(vals[plan.con_order], plan.con_offsets)
 
 
@@ -448,36 +516,55 @@ def _masked_blocks_obs_minor(problem: BAProblem, cam9, X, loss: str, f_scale: fl
     return r, w_obs.reshape(r.shape), Jc, Jp, cost
 
 
-def _constraint_blocks(problem, X):
+def _constraint_args(problem, plan: Optional[_Plan], X):
+    """(X_all, pa_idx, pb_idx) for the constraint ops: X and the problem's
+    slots, or on a point-sharded problem the points at the slots gathered
+    over the ranks (Q*8, 3) with the slots renumbered into them."""
+    if plan is None or plan.points_mesh is None:
+        return X, problem.con_pa_idx, problem.con_pb_idx
+    Q = problem.n_constraints
+    ids = torch.arange(Q * 8, device=X.device).reshape(Q, 8)
+    return _at_slots(problem, plan, X).reshape(-1, 3), ids[:, :4], ids[:, 4:]
+
+
+def _constraint_blocks(problem, X, plan: Optional[_Plan] = None):
     """(rq (Q,), qidx (Q,8), Jq (Q,8,3), cost) of the constraint rows, or
-    Nones and 0 without any. Constraints always use the linear loss (they
-    are metric priors)."""
+    Nones and 0 without any; replicated on every rank of a sharded problem.
+    Constraints always use the linear loss (they are metric priors)."""
     if not problem.n_constraints:
         return None, None, None, 0.0
-    rq, qidx, Jq = constraint_jacobian_blocks(
-        X, problem.con_pa_idx, problem.con_pa_w, problem.con_pb_idx, problem.con_pb_w,
-        problem.con_target, problem.con_weight,
+    X_all, pa_idx, pb_idx = _constraint_args(problem, plan, X)
+    rq, _, Jq = constraint_jacobian_blocks(
+        X_all, pa_idx, problem.con_pa_w, pb_idx, problem.con_pb_w, problem.con_target, problem.con_weight,
     )
+    qidx = torch.cat([problem.con_pa_idx, problem.con_pb_idx], 1)
     return rq, qidx, Jq, 0.5 * torch.sum(rq**2)
 
 
-def _masked_blocks(problem, cam9, X, loss: str, f_scale: float, obs_minor: bool = False):
-    """Residuals, IRLS weights, Jacobian blocks in the problem's layout,
-    constraint rows and the total robust cost:
-    (r, w, Jc, Jp, rq, qidx, Jq, cost)."""
+def _blocks(problem, cam9, X, loss: str, f_scale: float, obs_minor: bool, plan: Optional[_Plan]):
+    """Residuals, IRLS weights and Jacobian blocks in the problem's layout,
+    the observations' robust cost (this rank's, on a sharded problem), and
+    the constraint rows with their cost:
+    (r, w, Jc, Jp, cost_obs, rq, qidx, Jq, cost_con)."""
     if isinstance(problem, BADenseProblem):
         blocks = _masked_blocks_dense(problem, cam9, X, loss, f_scale)
     elif obs_minor:
         blocks = _masked_blocks_obs_minor(problem, cam9, X, loss, f_scale)
     else:
         blocks = _masked_blocks_rows(problem, cam9, X, loss, f_scale)
-    r, w, Jc, Jp, cost_obs = blocks
-    rq, qidx, Jq, cost_con = _constraint_blocks(problem, X)
+    return (*blocks, *_constraint_blocks(problem, X, plan))
+
+
+def _masked_blocks(problem, cam9, X, loss: str, f_scale: float, obs_minor: bool = False):
+    """Residuals, IRLS weights, Jacobian blocks in the problem's layout,
+    constraint rows and the total robust cost of an unsharded problem:
+    (r, w, Jc, Jp, rq, qidx, Jq, cost)."""
+    r, w, Jc, Jp, cost_obs, rq, qidx, Jq, cost_con = _blocks(problem, cam9, X, loss, f_scale, obs_minor, None)
     return r, w, Jc, Jp, rq, qidx, Jq, cost_obs + cost_con
 
 
-def _cost_only(problem, cam9, X, loss: str, f_scale: float, obs_minor: bool = False):
-    """Total robust cost: observations plus constraint rows."""
+def _cost_only(problem, cam9, X, loss: str, f_scale: float, obs_minor: bool = False, plan: Optional[_Plan] = None):
+    """Total robust cost (over all ranks): observations plus constraint rows."""
     if isinstance(problem, BADenseProblem):
         r = dense_observation_residuals(
             cam9, X, problem.uv, problem.K0, problem.dist0, problem.fisheye, problem.inv_fx,
@@ -496,11 +583,11 @@ def _cost_only(problem, cam9, X, loss: str, f_scale: float, obs_minor: bool = Fa
             problem.K0, problem.dist0, problem.fisheye, problem.inv_fx, problem.any_fisheye,
         )
         r = torch.where(problem.obs_mask[:, None], r, 0.0)
-    cost = robust_weights_and_cost((r**2).reshape(-1), loss, f_scale)[1]
+    cost = _reduce(plan and plan.mesh, robust_weights_and_cost((r**2).reshape(-1), loss, f_scale)[1])
     if problem.n_constraints:
+        X_all, pa_idx, pb_idx = _constraint_args(problem, plan, X)
         rq = constraint_residuals(
-            X, problem.con_pa_idx, problem.con_pa_w, problem.con_pb_idx, problem.con_pb_w,
-            problem.con_target, problem.con_weight,
+            X_all, pa_idx, problem.con_pa_w, pb_idx, problem.con_pb_w, problem.con_target, problem.con_weight,
         )
         cost = cost + 0.5 * torch.sum(rq**2)
     return cost
@@ -571,10 +658,13 @@ def _gradient_and_diag(problem, plan: _Plan, w, r, Jc, Jp, rq, qidx, Jq, obs_min
     """g = J^T W r and the diagonal blocks of J^T W J, constraint rows
     folded in: (g_c (C,9), g_p (P,3), d_c (C,9,9), d_p). d_p is (P,3,3)
     pinned, or (3,3,P) on the obs-minor layout; None on a dense
-    reprojection-only problem, whose solvers build it from the blocks."""
+    reprojection-only problem, whose solvers build it from the blocks.
+    Sums over the sharded axis are completed over the ranks before the
+    replicated constraint rows fold in."""
     P = plan.n_points
     if isinstance(problem, BADenseProblem):
         g_c, g_p, d_c = _gradient_and_diag_dense(w, r, Jc, Jp)
+        g_c, d_c = _reduce(plan.mesh, g_c, d_c)
         if not problem.n_constraints:
             return g_c, g_p, d_c, None
         g_p, d_p = _constraint_grad_diag(plan, qidx, Jq, rq, g_p, _point_blocks(w, Jp)[0], False)
@@ -589,6 +679,7 @@ def _gradient_and_diag(problem, plan: _Plan, w, r, Jc, Jp, rq, qidx, Jq, obs_min
         gp = Jp[0] * wr[0] + Jp[1] * wr[1]  # (3,N)
         dp = (Jp[0] * w[0])[:, None, :] * Jp[0][None] + (Jp[1] * w[1])[:, None, :] * Jp[1][None]  # (3,3,N)
         seg = _segment_sum(torch.cat([gp, dp.reshape(9, -1)]).T, plan.pt_offsets)  # (P,12)
+        g_c, d_c, seg = _reduce(plan.mesh, g_c, d_c, seg)
         g_p, d_p = _constraint_grad_diag(plan, qidx, Jq, rq, seg[:, :3], seg[:, 3:].T.reshape(3, 3, P), True)
         return g_c, g_p, d_c, d_p
     g_c = _by_camera(plan, (Jc * wr[..., None]).sum(1).T)
@@ -598,17 +689,18 @@ def _gradient_and_diag(problem, plan: _Plan, w, r, Jc, Jp, rq, qidx, Jq, obs_min
     Up = Jp * w[..., None]
     payload = torch.cat([(Jp * wr[..., None]).sum(1), (Up[:, :, :, None] * Jp[:, :, None, :]).sum(1).reshape(-1, 9)], 1)
     seg = _segment_sum(payload, plan.pt_offsets)  # (P,12)
+    g_c, d_c, seg = _reduce(plan.mesh, g_c, d_c, seg)
     g_p, d_p = _constraint_grad_diag(plan, qidx, Jq, rq, seg[:, :3], seg[:, 3:].reshape(P, 3, 3), False)
     return g_c, g_p, d_c, d_p
 
 
 def _hessian_matvec(problem, plan: _Plan, w, Jc, Jp, qidx, Jq, vc, vp, obs_minor: bool = False):
     """(H v) for H = J^T W J (constraint rows included), matrix-free from
-    the blocks: (out_c (C,9), out_p (P,3))."""
+    the blocks: (out_c (C,9), out_p (P,3)), over all ranks."""
     if isinstance(problem, BADenseProblem):
         Jv = (Jc * vc[:, None, :, None]).sum(2) + (Jp * vp.T[None, None]).sum(2)  # (C,2,P)
         wJv = w * Jv
-        out_c = (Jc * wJv[:, :, None, :]).sum((1, 3))
+        out_c = _reduce(plan.mesh, (Jc * wJv[:, :, None, :]).sum((1, 3)))
         out_p = (Jp * wJv[:, :, None, :]).sum((0, 1)).T
     elif obs_minor:
         ci, pi = problem.cam_idx, problem.pt_idx
@@ -621,8 +713,10 @@ def _hessian_matvec(problem, plan: _Plan, w, Jc, Jp, qidx, Jq, vc, vp, obs_minor
         wJv = w * ((Jc * vc[ci][:, None, :]).sum(-1) + (Jp * vp[pi][:, None, :]).sum(-1))  # (N,2)
         out_c = _by_camera(plan, (Jc * wJv[..., None]).sum(1).T)
         out_p = _segment_sum((Jp * wJv[..., None]).sum(1), plan.pt_offsets)
+    if not isinstance(problem, BADenseProblem):
+        out_c, out_p = _reduce(plan.mesh, out_c, out_p)
     if Jq is not None:
-        zq = (Jq * vp[qidx]).sum((1, 2))
+        zq = (Jq * _at_slots(problem, plan, vp)).sum((1, 2))
         out_p = out_p + _con_scatter(plan, (Jq * zq[:, None, None]).reshape(-1, 3))
     return out_c, out_p
 
@@ -736,6 +830,7 @@ def _solve_dense(problem, plan: _Plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, 
         Hcp = (U[:, :, :, None] * Jp[:, :, None, :]).sum(1)  # (N,9,3)
         for (a, b), blk in (((ci, ci), Hcc), ((pi, pi), Hpp), ((ci, pi), Hcp), ((pi, ci), Hcp.transpose(1, 2))):
             H.index_put_((a[:, :, None].expand_as(blk), b[:, None, :].expand_as(blk)), blk, accumulate=True)
+        H = _reduce(plan.rows_mesh, H)
     if Jq is not None:
         qi = (nc + qidx[:, :, None] * 3 + torch.arange(3, device=dev)).reshape(-1, 24)  # (Q,24)
         Jqf = Jq.reshape(-1, 24)
@@ -752,11 +847,13 @@ def _solve_dense(problem, plan: _Plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, 
 
 def _schur_factors(problem, plan: _Plan, w, Jc, Jp, d_c, d_p, lam, obs_minor: bool = False):
     """The explicit damped Schur factors: (Cholesky factor of S, G, Y,
-    Hpp_inv, free_c, pminor). S = A_cc - G Hpp^-1 G^T over cameras (9C x
-    9C); G the camera-point coupling and Y = G Hpp^-1. Dense and obs-minor
-    problems carry G, Y point-minor (C,9,3,P) and Hpp_inv (3,3,P); the
-    row-major layout (C,P,9,3) and (P,3,3). d_p carries the constraint
-    folds where there are constraint rows."""
+    Hpp_inv, free_c, pminor, points_mesh). S = A_cc - G Hpp^-1 G^T over
+    cameras (9C x 9C); G the camera-point coupling and Y = G Hpp^-1. Dense
+    and obs-minor problems carry G, Y point-minor (C,9,3,P) and Hpp_inv
+    (3,3,P); the row-major layout (C,P,9,3) and (P,3,3). d_p carries the
+    constraint folds where there are constraint rows. On a point-sharded
+    problem G, Y and Hpp_inv are this rank's points' and S is summed over
+    the ranks; on a row-sharded one G is summed over the ranks first."""
     C, P = problem.n_cameras, plan.n_points
     dt = d_c.dtype
     n_cp = C * N_CAM_PARAMS
@@ -771,29 +868,30 @@ def _schur_factors(problem, plan: _Plan, w, Jc, Jp, d_c, d_p, lam, obs_minor: bo
             # (point, camera) in the rows' sorted order
             g_rows = ((Jc[0] * w[0])[:, None, :] * Jp[0][None] + (Jc[1] * w[1])[:, None, :] * Jp[1][None])
             Gseg = _segment_sum(g_rows.reshape(N_CAM_PARAMS * 3, -1).T, plan.pc_offsets)  # (P*C,27)
+            Gseg = _reduce(plan.rows_mesh, Gseg)
             G = Gseg.reshape(P, C, N_CAM_PARAMS, 3).permute(1, 2, 3, 0)  # (C,9,3,P)
             Hpp_inv = _damped_point_inverse(d_p, lam, True)
         Y = torch.stack([sum(G[:, :, j, :] * Hpp_inv[j, k][None, None, :] for j in range(3)) for k in range(3)], 2)
-        S = -(Y.reshape(n_cp, -1) @ G.reshape(n_cp, -1).T)
-        return _cholesky(_add_camera_blocks(S, problem, A_cc)), G, Y, Hpp_inv, free_c, True
+        S = -_reduce(plan.points_mesh, Y.reshape(n_cp, -1) @ G.reshape(n_cp, -1).T)
+        return _cholesky(_add_camera_blocks(S, problem, A_cc)), G, Y, Hpp_inv, free_c, True, plan.points_mesh
     Hpp_inv = _damped_point_inverse(d_p, lam, False)  # (P,3,3)
     W = ((Jc * w[..., None])[:, :, :, None] * Jp[:, :, None, :]).sum(1)  # (N,9,3)
-    Gseg = _segment_sum(W.reshape(-1, N_CAM_PARAMS * 3), plan.pc_offsets)  # (P*C,27)
+    Gseg = _reduce(plan.rows_mesh, _segment_sum(W.reshape(-1, N_CAM_PARAMS * 3), plan.pc_offsets))  # (P*C,27)
     G = Gseg.reshape(P, C, N_CAM_PARAMS, 3).permute(1, 0, 2, 3)  # (C,P,9,3)
     Y = (G[..., :, :, None] * Hpp_inv[None, :, None, :, :]).sum(-2)  # (C,P,9,3)
     S = -(Y.permute(0, 2, 1, 3).reshape(n_cp, -1) @ G.permute(0, 2, 1, 3).reshape(n_cp, -1).T)
-    return _cholesky(_add_camera_blocks(S, problem, A_cc)), G, Y, Hpp_inv, free_c, False
+    return _cholesky(_add_camera_blocks(S, problem, A_cc)), G, Y, Hpp_inv, free_c, False, None
 
 
 def _schur_apply(factors, bc, bp):
     """Solve the damped reprojection normal system for right-hand sides
     (bc (C,9), bp (P,3)) given the Schur factors."""
-    L, G, Y, Hpp_inv, free_c, pminor = factors
+    L, G, Y, Hpp_inv, free_c, pminor, points_mesh = factors
     C = bc.shape[0]
     n_cp = C * N_CAM_PARAMS
     if pminor:
         bp_t = bp.T  # (3,P)
-        rhs_c = bc.reshape(-1) - sum(Y[:, :, k, :].reshape(n_cp, -1) @ bp_t[k] for k in range(3))
+        rhs_c = bc.reshape(-1) - _reduce(points_mesh, sum(Y[:, :, k, :].reshape(n_cp, -1) @ bp_t[k] for k in range(3)))
         dxc = torch.cholesky_solve(rhs_c[:, None], L)[:, 0].reshape(C, N_CAM_PARAMS) * free_c
         bp_corr = bp_t - torch.stack([dxc.reshape(-1) @ G[:, :, k, :].reshape(n_cp, -1) for k in range(3)])
         return dxc, _pminor_backsub(Hpp_inv, bp_corr)
@@ -803,17 +901,20 @@ def _schur_apply(factors, bc, bp):
     return dxc, (Hpp_inv * bp_corr[:, None, :]).sum(-1)
 
 
-def _dot(a, b):
-    return sum(torch.sum(x * y) for x, y in zip(a, b))
-
-
-def _pcg(A_mv, M_inv, b, tol: float, max_iter: int):
+def _pcg(A_mv, M_inv, b, tol: float, max_iter: int, points_mesh=None):
     """Preconditioned CG from x = 0 on tuples of tensors, as the JAX
     package's while-loops run it: stop once it == max_iter or
     r.r <= tol^2 b.b. The body runs in chunks of CG_CHECK_EVERY; an
     iteration whose stopping test already holds leaves the state as it was,
     so the result is the while-loop's. Returns (x, iterations as a device
-    scalar)."""
+    scalar). With points_mesh, the tuples are (cameras, this rank's points)
+    and the points' part of each dot product is summed over the ranks."""
+
+    def _dot(a, b):
+        if points_mesh is None:
+            return sum(torch.sum(x * y) for x, y in zip(a, b))
+        return torch.sum(a[0] * b[0]) + points_mesh.sum(torch.sum(a[1] * b[1]))[0]
+
     x = tuple(torch.zeros_like(t) for t in b)
     r = b
     z = M_inv(r)
@@ -859,6 +960,7 @@ def _solve_schur(problem, plan: _Plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, 
         bp_t = (-g_p).T.contiguous()  # (3,P)
         assemble = schur_s_rhs if fused else schur_s_rhs_plain
         S_raw, rhs_raw, Hpp_inv_t = assemble(Jc, Jp, w, bp_t, lam)
+        S_raw, rhs_raw = _reduce(plan.mesh, S_raw, rhs_raw)  # sums over points
         S = _add_camera_blocks(-S_raw, problem, _damped_A_cc(problem, d_c, lam))
         rhs_c = (-g_c).reshape(-1) - rhs_raw
         dxc = torch.cholesky_solve(rhs_c[:, None], _cholesky(S))[:, 0]
@@ -878,7 +980,7 @@ def _solve_schur(problem, plan: _Plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, 
         hc, hp = _hessian_matvec(problem, plan, w, Jc, Jp, qidx, Jq, v[0], v[1], obs_minor)
         return hc + lam * diag_c * v[0] + (1.0 - free_c) * v[0], hp + lam * diag_p * v[1]
 
-    (dxc, dxp), it = _pcg(A_mv, lambda r: _schur_apply(factors, *r), (-g_c, -g_p), cg_tol, cg_max_iter)
+    (dxc, dxp), it = _pcg(A_mv, lambda r: _schur_apply(factors, *r), (-g_c, -g_p), cg_tol, cg_max_iter, plan.points_mesh)
     return dxc * free_c, dxp, it
 
 
@@ -936,6 +1038,15 @@ def _solve_schur_cg(problem, plan: _Plan, w, Jc, Jp, g_c, g_p, d_c, d_p, lam, to
             a = w * (Jp * vp[pi][:, None, :]).sum(-1)
             return _by_camera(plan, (Jc * a[..., None]).sum(1).T)
 
+    if plan.mesh is not None:
+        G_local, G_T_local = G, G_T
+
+        def G(vp):  # a sum over points or rows: over the ranks
+            return _reduce(plan.mesh, G_local(vp))
+
+        def G_T(vc):  # a sum over rows on the sparse layout
+            return _reduce(plan.rows_mesh, G_T_local(vc))
+
     def S_mv(v):
         (vc,) = v
         Sp = (A_cc * vc[:, None, :]).sum(-1) - G(Hpp_inv_apply(G_T(vc)))
@@ -971,16 +1082,17 @@ def _solve_cg(problem, plan: _Plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, lam
     def M_inv(r):
         return (M_c_inv * r[0][:, None, :]).sum(-1), M_p_apply(r[1])
 
-    (dxc, dxp), it = _pcg(A_mv, M_inv, (-g_c, -g_p), tol, max_iter)
+    (dxc, dxp), it = _pcg(A_mv, M_inv, (-g_c, -g_p), tol, max_iter, plan.points_mesh)
     return dxc * free_c, dxp, it
 
 
-def _predicted_decrease(problem, w, Jp, d_c, d_p, g_c, g_p, dxc, dxp, lam, obs_minor: bool = False):
+def _predicted_decrease(problem, w, Jp, d_c, d_p, g_c, g_p, dxc, dxp, lam, obs_minor: bool = False, plan: Optional[_Plan] = None):
     """Damped-model predicted cost decrease for the LM gain ratio:
     0.5 * (lam * dx^T D dx - g^T dx) with D = diag(J^T W J) floored. A dense
     reprojection-only problem recomputes the point diagonal from the blocks;
     dropping its pinning and floor is exact there (unobserved points have
-    dxp == 0)."""
+    dxp == 0). On a point-sharded problem the points' terms are summed over
+    the ranks."""
     diag_c = torch.clamp(_diag(d_c), min=1e-12)
     cam_term = torch.sum(dxc * diag_c * dxc)
     if isinstance(problem, BADenseProblem) and not problem.n_constraints:
@@ -988,7 +1100,8 @@ def _predicted_decrease(problem, w, Jp, d_c, d_p, g_c, g_p, dxc, dxp, lam, obs_m
         pt_term = torch.sum(dxp.T**2 * diag_pt)
     else:
         pt_term = torch.sum(dxp * _point_diag(problem, w, Jp, d_p, obs_minor) * dxp)
-    return 0.5 * (lam * (cam_term + pt_term) - (torch.sum(g_c * dxc) + torch.sum(g_p * dxp)))
+    pt_term, gp_dxp = _reduce(plan and plan.points_mesh, pt_term, torch.sum(g_p * dxp))
+    return 0.5 * (lam * (cam_term + pt_term) - (torch.sum(g_c * dxc) + gp_dxp))
 
 
 # ---------------------------------------------------------------------------
@@ -1009,52 +1122,75 @@ class BAResult:
     fused_schur: bool = False  # whether the Schur solves went through schur_s_rhs
     obs_minor: bool = False  # whether a sparse problem ran obs-minor
     cg_iterations: tuple[int, ...] = ()  # CG iterations per LM iteration, where the solver ran a CG
+    n_devices: int = 1  # ranks the problem was sharded over
+
+
+def _step(problem, plan, cam9, X, lam, *, loss, f_scale, solver_kind, cg_tol, cg_max_iter, fused, obs_minor):
+    """Blocks, gradient and damped step of one LM iteration: (dxc, dxp,
+    gnorm, CG iterations or None, the model's terms (w, Jp, d_c, d_p, g_c,
+    g_p), this rank's observation cost, the constraint rows' cost)."""
+    r, w, Jc, Jp, cost_obs, rq, qidx, Jq, cost_con = _blocks(problem, cam9, X, loss, f_scale, obs_minor, plan)
+    g_c, g_p, d_c, d_p = _gradient_and_diag(problem, plan, w, r, Jc, Jp, rq, qidx, Jq, obs_minor)
+    gmax_p = torch.max(torch.abs(g_p))
+    if plan.points_mesh is not None:
+        gmax_p = plan.points_mesh.max(gmax_p)
+    gnorm = torch.maximum(torch.max(torch.abs(g_c * problem.param_free)), gmax_p)
+    cg_it = None
+    if solver_kind == "dense":
+        dxc, dxp = _solve_dense(problem, plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, lam, obs_minor)
+    elif solver_kind == "schur":
+        dxc, dxp, cg_it = _solve_schur(
+            problem, plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, lam, cg_tol, cg_max_iter, fused, obs_minor
+        )
+    elif solver_kind == "schur_cg":
+        dxc, dxp, cg_it = _solve_schur_cg(problem, plan, w, Jc, Jp, g_c, g_p, d_c, d_p, lam, cg_tol, cg_max_iter, obs_minor)
+    else:
+        dxc, dxp, cg_it = _solve_cg(problem, plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, lam, cg_tol, cg_max_iter, obs_minor)
+    return dxc, dxp, gnorm, cg_it, (w, Jp, d_c, d_p, g_c, g_p), cost_obs, cost_con
+
+
+def _lm_update(problem, plan, cam9, X, lam, cost, dxc, dxp, cam9_new, X_new, model, *, loss, f_scale, obs_minor):
+    """The trial point's cost, the accept test and the gain-ratio damping
+    update of one LM iteration: (cam9', X', lam', cost_new, accepted)."""
+    cost_new = _cost_only(problem, cam9_new, X_new, loss, f_scale, obs_minor, plan)
+    pred = _predicted_decrease(problem, *model, dxc, dxp, lam, obs_minor, plan)
+    rho = (cost - cost_new) / torch.clamp(pred, min=1e-30)
+    accept = cost_new < cost
+    lam = torch.where(accept, lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0), lam * 4.0)
+    cam9, X = torch.where(accept, cam9_new, cam9), torch.where(accept, X_new, X)
+    return cam9, X, torch.clamp(lam, 1e-12, 1e10), cost_new, accept
 
 
 def _lm_run(problem, plan, cam9, X, lb, ub, *, loss, f_scale, max_iter, ftol, xtol, gtol, solver_kind, cg_tol, cg_max_iter, init_lambda, fused, obs_minor):
     """The LM loop. Returns (cam9, X, cost0, cost, gnorm, iterations, done,
-    CG iteration counts as device scalars)."""
+    CG iteration counts as device scalars). Every value the loop branches on
+    is replicated or summed over the ranks, so on a sharded problem all
+    ranks stop together."""
     dt, dev = cam9.dtype, cam9.device
-    cost0 = _cost_only(problem, cam9, X, loss, f_scale, obs_minor)
+    cost0 = _cost_only(problem, cam9, X, loss, f_scale, obs_minor, plan)
     cost = cost0
     lam = torch.tensor(init_lambda, dtype=dt, device=dev)
     gnorm = torch.tensor(float("inf"), dtype=dt, device=dev)
     it, done, cg_its = 0, False, []
     while it < max_iter and not done:
-        r, w, Jc, Jp, rq, qidx, Jq, _ = _masked_blocks(problem, cam9, X, loss, f_scale, obs_minor)
-        g_c, g_p, d_c, d_p = _gradient_and_diag(problem, plan, w, r, Jc, Jp, rq, qidx, Jq, obs_minor)
-        gnorm = torch.maximum(torch.max(torch.abs(g_c * problem.param_free)), torch.max(torch.abs(g_p)))
-        cg_it = None
-        if solver_kind == "dense":
-            dxc, dxp = _solve_dense(problem, plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, lam, obs_minor)
-        elif solver_kind == "schur":
-            dxc, dxp, cg_it = _solve_schur(
-                problem, plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, lam, cg_tol, cg_max_iter, fused, obs_minor
-            )
-        elif solver_kind == "schur_cg":
-            dxc, dxp, cg_it = _solve_schur_cg(problem, plan, w, Jc, Jp, g_c, g_p, d_c, d_p, lam, cg_tol, cg_max_iter, obs_minor)
-        else:
-            dxc, dxp, cg_it = _solve_cg(problem, plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, lam, cg_tol, cg_max_iter, obs_minor)
+        dxc, dxp, gnorm, cg_it, model, _, _ = _step(
+            problem, plan, cam9, X, lam, loss=loss, f_scale=f_scale, solver_kind=solver_kind, cg_tol=cg_tol,
+            cg_max_iter=cg_max_iter, fused=fused, obs_minor=obs_minor,
+        )
         if cg_it is not None:
             cg_its.append(cg_it)
 
-        cam9_new, X_new = torch.clamp(cam9 + dxc, lb, ub), X + dxp
-        cost_new = _cost_only(problem, cam9_new, X_new, loss, f_scale, obs_minor)
-
         # gain ratio vs the damped-model predicted decrease
-        pred = _predicted_decrease(problem, w, Jp, d_c, d_p, g_c, g_p, dxc, dxp, lam, obs_minor)
-        rho = (cost - cost_new) / torch.clamp(pred, min=1e-30)
-        accept = cost_new < cost
-        lam = torch.where(accept, lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0), lam * 4.0)
-        lam = torch.clamp(lam, 1e-12, 1e10)
-
-        cam9 = torch.where(accept, cam9_new, cam9)
-        X = torch.where(accept, X_new, X)
+        cam9, X, lam, cost_new, accept = _lm_update(
+            problem, plan, cam9, X, lam, cost, dxc, dxp, torch.clamp(cam9 + dxc, lb, ub), X + dxp, model,
+            loss=loss, f_scale=f_scale, obs_minor=obs_minor,
+        )
         rel_dec = (cost - cost_new) / torch.clamp(cost, min=1e-30)
         # scipy-style termination: ftol (small accepted relative decrease),
         # xtol (small accepted step), gtol, or a stalled trust region
-        x_norm = torch.sqrt(torch.sum(cam9**2) + torch.sum(X**2))
-        dx_norm = torch.sqrt(torch.sum(dxc**2) + torch.sum(dxp**2))
+        sum_X2, sum_dxp2 = _reduce(plan.points_mesh, torch.sum(X**2), torch.sum(dxp**2))
+        x_norm = torch.sqrt(torch.sum(cam9**2) + sum_X2)
+        dx_norm = torch.sqrt(torch.sum(dxc**2) + sum_dxp2)
         done_t = (
             (accept & (rel_dec < ftol))
             | (accept & (dx_norm < xtol * (x_norm + xtol)))
@@ -1068,10 +1204,11 @@ def _lm_run(problem, plan, cam9, X, lb, ub, *, loss, f_scale, max_iter, ftol, xt
 
 
 def _use_obs_minor(problem, policy: str = "auto") -> bool:
-    """Whether a solve of `problem` takes the obs-minor sparse layout."""
+    """Whether a solve of `problem` takes the obs-minor sparse layout (never
+    a sharded one, as in the JAX package under a mesh)."""
     if policy not in ("auto", "always", "never"):
         raise ValueError(f"Unknown obs_minor policy {policy!r}")
-    if isinstance(problem, BADenseProblem) or policy == "never":
+    if isinstance(problem, BADenseProblem) or problem.shard is not None or policy == "never":
         return False
     if policy == "always":
         return True
@@ -1079,13 +1216,15 @@ def _use_obs_minor(problem, policy: str = "auto") -> bool:
 
 
 def _solver_kind(problem, config: BAConfig, C: int, P: int) -> str:
-    """The linear solver a solve runs: the config's, or under 'auto' dense
-    for small systems, the explicit Schur factors while their two (C, P,
-    9, 3) tensors fit in 1 GiB, past it the implicit Schur CG (or the full
-    CG on a constrained problem, whose point coupling the implicit Schur
-    elimination cannot take)."""
+    """The linear solver a solve runs: the config's, or under 'auto' 'schur'
+    on a sharded problem, else dense for small systems, the explicit Schur
+    factors while their two (C, P, 9, 3) tensors fit in 1 GiB, past it the
+    implicit Schur CG (or the full CG on a constrained problem, whose point
+    coupling the implicit Schur elimination cannot take)."""
     if config.solver != "auto":
         kind = config.solver
+    elif problem.shard is not None:
+        kind = "schur"
     elif N_CAM_PARAMS * C + 3 * P <= config.dense_cutoff:
         kind = "dense"
     else:
@@ -1096,30 +1235,117 @@ def _solver_kind(problem, config: BAConfig, C: int, P: int) -> str:
             kind = "schur_cg" if not problem.n_constraints else "cg"
     if kind not in ("dense", "schur", "schur_cg", "cg"):
         raise ValueError(f"Unknown solver {config.solver!r}")
+    if kind == "dense" and isinstance(problem, BADenseProblem) and problem.shard is not None:
+        raise ValueError("solver='dense' assembles every point's rows on one rank; a point-sharded problem takes 'schur', 'schur_cg' or 'cg'")
     return kind
+
+
+def _sharded(problem, config: BAConfig, mesh, cam9_0, X0):
+    """The problem a solve runs: as given when it is already sharded, else
+    this rank's shard over `mesh`, or over the default process group as
+    config.shard says ('auto': a group of more than one rank and at least
+    shard_min_obs observations; 'always': any initialised group), or the
+    problem itself on a single placement. Sharding checks that every rank
+    holds the same problem, cam9_0 and X0, and raises ValueError if not."""
+    from caliscope_tpu_torch.parallel.sharded import Mesh, make_obs_mesh, shard_problem
+
+    if config.shard not in ("auto", "always", "never"):
+        raise ValueError(f"Unknown shard policy {config.shard!r}")
+    if problem.shard is not None:
+        if mesh is not None and mesh is not problem.shard.mesh:
+            raise ValueError("the problem is sharded over another mesh")
+        return problem
+    if mesh is None:
+        import torch.distributed as dist
+
+        if config.shard == "never" or not (dist.is_available() and dist.is_initialized()):
+            return problem
+        if config.shard == "auto" and (dist.get_world_size() < 2 or problem.n_obs < config.shard_min_obs):
+            return problem
+        mesh = make_obs_mesh(problem.uv.device)
+    elif not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a caliscope_tpu_torch.parallel.Mesh, not {type(mesh).__name__}")
+    return shard_problem(problem, mesh, cam9_0, X0)
+
+
+def _local_points(problem, X):
+    """Points (P,3) of the whole problem -> those of this rank's block on a
+    point-sharded problem (the padding points at the centroid, as the JAX
+    package pads X0), else X itself."""
+    shard = problem.shard
+    if shard is None or not isinstance(problem, BADenseProblem):
+        return X
+    extra = shard.n_global - X.shape[0]
+    if extra > 0:
+        X = torch.cat([X, X.mean(0, keepdim=True).expand(extra, 3)])
+    return X[shard.offset : shard.offset + shard.length]
+
+
+def _all_points(problem, X, P: int):
+    """This rank's points -> the first P points of the whole problem."""
+    if problem.shard is not None and isinstance(problem, BADenseProblem):
+        X = problem.shard.mesh.gather_rows(X)
+    return X[:P] if X.shape[0] != P else X
+
+
+def lm_iteration(problem, cam9, X, lam, *, loss: str = "linear", f_scale: float = 1.0, use_dense: bool = False, solver: str = "schur", cg_tol: float = 1e-6, cg_max_iter: int = 200):
+    """One full Levenberg-Marquardt iteration (assembly + linear solve +
+    gain-ratio damping update) on the problem's device, without bounds or
+    termination tests: the unit a sharded problem's ranks run together
+    (parallel/sharded.py). X is every point of the problem (P,3).
+
+    Returns (cam9', X', lam', cost', accepted) as tensors."""
+    if solver == "schur_cg" and not use_dense and problem.n_constraints:
+        raise ValueError(
+            "solver='schur_cg' is reprojection-only (constraints couple points "
+            "and break the block-diagonal Hpp elimination); use 'schur' or 'cg'."
+        )
+    dtype, device = problem.uv.dtype, problem.uv.device
+    on_dev = dict(dtype=dtype, device=device)
+    cam9, lam = torch.as_tensor(cam9, **on_dev), torch.as_tensor(lam, **on_dev)
+    X_all = torch.as_tensor(X, **on_dev)
+    X = _local_points(problem, X_all)
+    kind = _solver_kind(problem, BAConfig(solver="dense" if use_dense else solver), problem.n_cameras, X.shape[0])
+    plan = _make_plan(problem, X.shape[0], dtype)
+    obs_minor = _use_obs_minor(problem)
+    fused = isinstance(problem, BADenseProblem) and fused_schur_available(problem, X.shape[0], dtype)
+    dxc, dxp, _gnorm, _it, model, cost_obs, cost_con = _step(
+        problem, plan, cam9, X, lam, loss=loss, f_scale=f_scale, solver_kind=kind, cg_tol=cg_tol,
+        cg_max_iter=cg_max_iter, fused=fused, obs_minor=obs_minor,
+    )
+    cost = _reduce(plan.mesh, cost_obs) + cost_con
+    cam9, X, lam, cost_new, accept = _lm_update(
+        problem, plan, cam9, X, lam, cost, dxc, dxp, cam9 + dxc, X + dxp, model,
+        loss=loss, f_scale=f_scale, obs_minor=obs_minor,
+    )
+    return cam9, _all_points(problem, X, X_all.shape[0]), lam, torch.minimum(cost, cost_new), accept
 
 
 def lm_solve(problem, cam9_0, X0, config: BAConfig = BAConfig(), mesh=None, *, fused_schur: bool | None = None) -> BAResult:
     """Run Levenberg-Marquardt bundle adjustment on the problem's device.
 
     Args:
-        problem: BAProblem (make_problem) or BADenseProblem (make_dense_problem).
+        problem: BAProblem (make_problem) or BADenseProblem (make_dense_problem),
+            whole or already sharded (parallel.shard_problem).
         cam9_0:  (C,9) initial camera blocks [rvec, tvec, s, k1, k2].
-        X0:      (P,3) initial world points (host array or tensor).
+        X0:      (P,3) initial world points, all of them (host array or tensor).
         config:  BAConfig.
-        mesh:    not ported (observation-axis sharding); must be None.
+        mesh:    a parallel.Mesh to shard the problem over (every rank of its
+            process group calls lm_solve with the same arguments); None
+            leaves it to config.shard.
         fused_schur: assemble the Schur system with the fused kernel. None
             (default) uses it whenever the problem qualifies (dense layout,
             no constraint rows, CUDA, float32, <= 16 cameras); True forces
             it (raising on a constrained or sparse problem, and where the
-            wrapper cannot take the inputs); False never.
+            wrapper cannot take the inputs); False never. On a sharded
+            problem it runs on each rank's points.
 
-    Returns BAResult; X stays on the device.
+    Returns BAResult; X stays on the device, whole on every rank.
     """
     if not isinstance(problem, (BAProblem, BADenseProblem)):
         raise TypeError(f"lm_solve takes a BAProblem or a BADenseProblem, not {type(problem).__name__}")
-    if mesh is not None or config.shard == "always" or config.bake_problem:
-        raise not_ported("Sharded or baked bundle adjustment (mesh, shard='always', bake_problem)", "item 24, multi-device sharding")
+    if config.bake_problem:
+        raise not_ported("Baking the problem into the program (bake_problem=True)", "item 24b, a CUDA graph of the LM iteration")
     if config.solver == "schur_cg" and problem.n_constraints:
         raise ValueError(
             "solver='schur_cg' is reprojection-only (constraints couple points "
@@ -1131,9 +1357,13 @@ def lm_solve(problem, cam9_0, X0, config: BAConfig = BAConfig(), mesh=None, *, f
             "fused_schur=True: the fused Schur kernel takes dense reprojection-only "
             "problems; this one is sparse or has constraint rows"
         )
+    problem = _sharded(problem, config, mesh, cam9_0, X0)
     dtype, device = problem.uv.dtype, problem.uv.device
+    on_dev = dict(dtype=dtype, device=device)
     C = problem.n_cameras
-    P = int(X0.shape[0])
+    X_all = torch.as_tensor(X0, **on_dev)
+    X = _local_points(problem, X_all)
+    P = int(X.shape[0])
     solver_kind = _solver_kind(problem, config, C, P)
     obs_minor = _use_obs_minor(problem, config.obs_minor)
     if fused_schur is None:
@@ -1144,12 +1374,11 @@ def lm_solve(problem, cam9_0, X0, config: BAConfig = BAConfig(), mesh=None, *, f
     ub = np.full((C, N_CAM_PARAMS), BIG)
     lb[:, 6:] = INTRINSIC_LOWER
     ub[:, 6:] = INTRINSIC_UPPER
-    on_dev = dict(dtype=dtype, device=device)
     cam9, X, cost0, cost, gnorm, it, done, cg_its = _lm_run(
         problem,
         plan,
         torch.as_tensor(np.asarray(cam9_0), **on_dev),
-        torch.as_tensor(X0, **on_dev),
+        X,
         torch.as_tensor(lb, **on_dev),
         torch.as_tensor(ub, **on_dev),
         loss=config.loss,
@@ -1171,7 +1400,7 @@ def lm_solve(problem, cam9_0, X0, config: BAConfig = BAConfig(), mesh=None, *, f
     nc = N_CAM_PARAMS * C
     return BAResult(
         cam9=flat[:nc].reshape(C, N_CAM_PARAMS),
-        X=X,
+        X=_all_points(problem, X, X_all.shape[0]),
         cost_initial=float(flat[nc]),
         cost_final=float(flat[nc + 1]),
         n_iterations=it,
@@ -1181,6 +1410,7 @@ def lm_solve(problem, cam9_0, X0, config: BAConfig = BAConfig(), mesh=None, *, f
         fused_schur=bool(fused_schur) and solver_kind == "schur",
         obs_minor=obs_minor,
         cg_iterations=tuple(int(c) for c in flat[nc + 3 :]),
+        n_devices=problem.shard.mesh.size if problem.shard is not None else 1,
     )
 
 

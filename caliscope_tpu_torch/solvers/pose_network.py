@@ -41,7 +41,6 @@ from caliscope_tpu_torch.exceptions import CalibrationError
 from caliscope_tpu_torch.observations import ImagePoints
 from caliscope_tpu_torch.ops import lie
 from caliscope_tpu_torch.ops.bucket import bucket_size, pad_rows
-from caliscope_tpu_torch.solvers.bundle import not_ported
 
 logger = logging.getLogger(__name__)
 

@@ -399,8 +399,13 @@ class CaptureVolume:
         constraint set, its firing distance rows join the solve at weight
         (pixel_sigma / median focal) / sigma.
 
-        shard / bake_problem: only the single-placement defaults run
-        (sharding is not ported; lm_solve raises for the others).
+        shard: passed to lm_solve as BAConfig.shard — 'auto' (default)
+        shards the solve over an initialised torch.distributed process
+        group of more than one rank when the problem has at least
+        BAConfig.shard_min_obs observations, 'always' over any initialised
+        group, 'never' keeps one placement. Every rank of the group calls
+        optimize on the same volume; each gets the whole result.
+        bake_problem: not ported (lm_solve raises, ROADMAP.md item 24b).
         fused_schur: passed to lm_solve — None (default) assembles the Schur
         system with the CUDA kernel whenever the problem qualifies, False
         never, True always (raising where the kernel cannot run)."""

@@ -79,7 +79,27 @@ on any failed check. Phases:
    its plain version (torch.equal) at every shape (b) and (c) gave it (the
    calls recorded as they launch); and kernels 2-4 against their plain
    versions at the trackers' shapes (B = 1; K = 512, win 28), timed there.
-9. A `kernels` JSON line (each detection kernel with its launches on every
+9. Vertical and sharded: (a) GeoCalib's tiny perspective-field network with
+   seeded random weights, exported at 320x576 and run through
+   OnnxTorchSession against the module's forward (ms a call of each), then
+   its up head seeded to a constant field and the vertical estimator's
+   frames path (resize on the card, the network, a gravity fit a frame) on
+   8 cameras x 6 frames of 1920x1080, gated on every camera's up within
+   1 deg of +y; (b) fit_gravity on 8 analytic up-fields with 10 % outlier
+   pixels, gated on the truth (0.5 deg) and on the port's CPU fit (1e-3
+   deg), float32 and float64 timed with their LM iterations; (c) the
+   canonical BA problem (dense, 40,960 bucketed points) for 10 LM
+   iterations on one placement, over a world-size-1 NCCL mesh and over two
+   processes that share the card through gloo (`--sharded-worker`), gated
+   on the same iterations, the cost (1e-5), and, up to the similarity the
+   BA leaves free, the rotations (1e-4 rad), the intrinsic columns (1e-4 of
+   their scale) and the centers (0.05 mm) against the single placement, and
+   as they are every cam9 entry (1e-2 of its column's scale) and the
+   centers (1 mm), the two ranks equal bit for bit, kernel 1 launched once
+   a Schur solve on each rank and held to its plain version on each rank's
+   first LM iteration's blocks (P = 20,480); ms per LM iteration and the
+   all-reduces and bytes per iteration.
+10. A `kernels` JSON line (each detection kernel with its launches on every
    path, `launches_by_path`), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -233,6 +253,32 @@ CHAIN_CAMERAS, CHAIN_FRAMES = 4, 80
 CHAIN_MODEL_HW = (128, 160)
 MAX_CHAIN_MEDIAN_M = 0.02  # tests/test_onnx_engine.py:256
 EPIPOLAR_PARTS = ("pooled_correspondences", "recover_pair_pose", "_assemble_from_scaffold", "stereo_rmse")
+# vertical and sharded phase: (a) GeoCalib tiny at the 16:9 geometry (short
+# side 320, edges multiples of 32), 8 cameras x 6 frames of 1920x1080 (the
+# JAX package's n_sample_frames); (b) analytic up-fields at the network's
+# field size; (c) the canonical BA problem on one placement, a world-size-1
+# NCCL mesh and two gloo ranks sharing the card
+VERT_HW = (320, 576)
+VERT_CAMERAS, VERT_FRAMES = 8, 6
+VERT_FRAME_WH = (1920, 1080)
+MAX_UP_DEG = 1.0
+FIT_STRIDE, FIT_NOISE, FIT_OUTLIERS = 8, 0.01, 0.10
+MAX_FIT_DEG = 0.5
+CARD_VS_CPU_FIT_DEG = 1e-3
+SHARD_WORLD = 2
+SHARD_ITERS = 10
+# against the single placement, up to the similarity the BA leaves free
+# (no camera is fixed): in float32 two reduction orders drift apart along
+# that gauge over the iterations (on an NVIDIA H100 80GB HBM3 at 700 W,
+# 4.9e-5 m of the centers as they are and 7.3e-4 of a cam9 column's scale,
+# PERF.md) while the cost agrees to 7e-8. The raw bounds, set from those
+# readings, still fail a rig that drifts far along the gauge.
+SHARD_COST_RTOL = 1e-5
+SHARD_CAM9_RTOL = 1e-4  # rotations (rad) and the intrinsic columns over their scale
+SHARD_CENTER_M = 5e-5
+SHARD_RAW_CAM9_RTOL = 1e-2  # every cam9 entry as it is, over its column's scale
+SHARD_RAW_CENTER_M = 1e-3  # the centers as they are
+SHARD_TIMEOUT_S = 300
 
 PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12, 33.5e12)}
 
@@ -394,10 +440,14 @@ def kernel_phase(device, peaks):
     # the BA slice's shape (C = 8, P = bucket_size(35001, fine=True)), the
     # pipeline's (C = 8, P = bucket_size(21001, fine=True)), a ragged point
     # count, the camera bound, a camera count that is no multiple of 8
-    # (padded tile rows), and fewer points than one tile. With
+    # (padded tile rows), fewer points than one tile, and the BA slice's
+    # points split over SHARD_WORLD ranks (a gloo rank's shard in the
+    # vertical and sharded phase). With
     # one camera every point block has rank 2 and its damped inverse is of
     # order 1 / lam, which magnifies float32 roundoff by as much: lam = 1 there
-    for C, P in ((N_CAMERAS, 40_960), (N_CAMERAS, PIPE_BUCKET), (N_CAMERAS, 12_345), (FS.MAX_CAMERAS, 4_099), (5, 1_000), (1, 7)):
+    shapes = ((N_CAMERAS, 40_960), (N_CAMERAS, PIPE_BUCKET), (N_CAMERAS, 12_345), (FS.MAX_CAMERAS, 4_099), (5, 1_000), (1, 7),
+              (N_CAMERAS, 40_960 // SHARD_WORLD))
+    for C, P in shapes:
         args = inputs(C, P, seed=C * 100_000 + P, lam=1.0 if C == 1 else LAM)
         got = FS.schur_s_rhs(*args)
         again = FS.schur_s_rhs(*args)
@@ -2615,6 +2665,389 @@ def markerless_phase(device, smi_line, ring, ring_ip):
     return launches + chain_launches
 
 
+def geocalib_on_card(device, smi_line):
+    """(a): GeoCalib tiny with seeded random weights and randomized BN,
+    exported at VERT_HW and run through OnnxTorchSession against the
+    module's forward; then, its up head seeded to a constant field, the
+    frames path of the vertical estimator on 8 cameras x 6 frames."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from caliscope_tpu_torch.estimators import vertical as V
+    from caliscope_tpu_torch.estimators.geocalib_arch import GeoCalibFields
+    from caliscope_tpu_torch.pose.onnx_proto import parse_model, write_model
+    from caliscope_tpu_torch.pose.onnx_torch import OnnxTorchSession
+
+    torch.manual_seed(SEED)
+    net = randomized_bn(GeoCalibFields("tiny", decoder_width=64).eval()).to(device)
+    t0 = time.perf_counter()
+    raw = write_model(net.export_onnx_model(VERT_HW))
+    sess = OnnxTorchSession(parse_model(raw), device=device)
+    build_s = time.perf_counter() - t0
+    x = torch.rand(1, 3, *VERT_HW, device=device, generator=torch.Generator(device=device).manual_seed(SEED))
+    with torch.no_grad():
+        want = net(x)
+    got = sess.forward({"input": x})
+    errs = {name: float((g - w).abs().max()) for name, g, w in zip(V.FIELD_NAMES, got, want)}
+    close = all(torch.allclose(g, w, atol=POSE_ATOL, rtol=POSE_RTOL) for g, w in zip(got, want))
+    log(f"vertical (a): GeoCalib tiny ({sum(p.numel() for p in net.parameters())} parameters, {len(raw)} bytes of ONNX, "
+        f"{len(sess.graph.nodes)} nodes) at {VERT_HW[0]}x{VERT_HW[1]} exported and parsed in {build_s:.2f} s; "
+        f"OnnxTorchSession vs the module's forward: max |diff| {json.dumps(errs)} (atol {POSE_ATOL}, rtol {POSE_RTOL})")
+    if not close:
+        raise AssertionError("vertical (a): the executor disagrees with the module's forward")
+    times = {"executor_b1_ms": time_ms(lambda: sess.forward({"input": x}), reps=10, rounds=5)}
+    with torch.no_grad():
+        times["module_b1_ms"] = time_ms(lambda: net(x), reps=10, rounds=5)
+    log(f"vertical (a): ms a call (CUDA events, median of 5 x 10 warm calls) {json.dumps({k: round(v, 4) for k, v in times.items()})} [{smi_line}]")
+
+    net.seed_constant_up()
+    rng = np.random.default_rng(SEED)
+    w, h = VERT_FRAME_WH
+    frames = {}
+    for cid in range(VERT_CAMERAS):
+        base = rng.integers(0, 256, (h // 8, w // 8, 3)).astype(np.uint8)
+        frames[cid] = [np.ascontiguousarray(np.roll(np.kron(base, np.ones((8, 8, 1), np.uint8)), 24 * i, axis=1))
+                       for i in range(VERT_FRAMES)]
+    K = np.array([[1400.0, 0, w / 2], [0, 1400.0, h / 2], [0, 0, 1]])
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / V.GEOCALIB_FILENAME).write_bytes(write_model(net.export_onnx_model(VERT_HW)))
+        V.estimate_vertical_from_frames({0: frames[0][:1]}, {0: K}, tmp, device=device)  # warm
+        sync(device)
+        t0 = time.perf_counter()
+        est = V.estimate_vertical_from_frames(frames, {cid: K for cid in frames}, tmp, device=device)
+        sync(device)
+        seconds = time.perf_counter() - t0
+        # where a frame's time goes: the field (upload, resize, network, copy
+        # back) and the fit, each on the frames of camera 0
+        seeded = OnnxTorchSession(parse_model((Path(tmp) / V.GEOCALIB_FILENAME).read_bytes()), device=device)
+        part = {"field_ms": [], "fit_ms": []}
+        for frame in frames[0]:
+            sync(device)
+            t0 = time.perf_counter()
+            field, _ = V._infer_up_field(seeded, frame)
+            t1 = time.perf_counter()
+            V.fit_gravity(field, K * np.array([[VERT_HW[1] / w], [VERT_HW[0] / h], [1.0]]), device=device)
+            sync(device)
+            part["field_ms"].append(1e3 * (t1 - t0))
+            part["fit_ms"].append(1e3 * (time.perf_counter() - t1))
+    off = {cid: float(np.degrees(np.arccos(np.clip(up[1], -1, 1)))) for cid, up in est.up_by_camera.items()}
+    log(f"vertical (a): estimate_vertical_from_frames on {VERT_CAMERAS} cameras x {VERT_FRAMES} frames of {w}x{h}: "
+        f"{seconds:.3f} s ({1e3 * seconds / (VERT_CAMERAS * VERT_FRAMES):.2f} ms a frame: resize, network, fit; medians on "
+        f"camera 0: field {np.median(part['field_ms']):.2f} ms, fit {np.median(part['fit_ms']):.2f} ms); "
+        f"frames used {est.n_frames_by_camera}; up vs +y in degrees {json.dumps({k: round(v, 6) for k, v in off.items()})} "
+        f"[{smi_line}]")
+    if sorted(est.up_by_camera) != list(range(VERT_CAMERAS)) or not max(off.values()) < MAX_UP_DEG:
+        raise AssertionError(f"vertical (a): a camera's up is more than {MAX_UP_DEG} deg from +y")
+
+
+def _angle_deg(a, b):
+    import numpy as np
+
+    return float(np.degrees(np.arccos(np.clip(abs(a @ b) / (np.linalg.norm(a) * np.linalg.norm(b)), -1, 1))))
+
+
+def gravity_fits(device, smi_line):
+    """(b): fit_gravity on analytic up-fields of 8 known gravities and Ks
+    at the network's field size, seeded noise and 10 % outlier pixels: the
+    card's default (float64) fit against the truth and against the CPU's,
+    and float32 and float64 fits timed with their LM iterations."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from caliscope_tpu_torch.estimators.vertical_solver import fit_gravity
+
+    rng = np.random.default_rng(SEED)
+    H, W = VERT_HW
+    ys, xs = np.mgrid[0:H, 0:W]
+    rows = []
+    for _ in range(VERT_CAMERAS):
+        g = rng.normal([0.0, 1.0, 0.0], [0.25, 0.05, 0.25])
+        g /= np.linalg.norm(g)
+        f = rng.uniform(350.0, 700.0)
+        K = np.array([[f, 0, W / 2 + rng.uniform(-10, 10)], [0, f, H / 2 + rng.uniform(-10, 10)], [0, 0, 1]])
+        pnx, pny = (xs - K[0, 2]) / K[0, 0], (ys - K[1, 2]) / K[1, 1]
+        field = np.stack([g[0] - pnx * g[2], g[1] - pny * g[2]], axis=-1)
+        field /= np.linalg.norm(field, axis=-1, keepdims=True)
+        field += rng.normal(scale=FIT_NOISE, size=field.shape)
+        bad = rng.uniform(size=(H, W)) < FIT_OUTLIERS
+        field[bad] = rng.normal(size=(int(bad.sum()), 2))
+        cpu = fit_gravity(field, K, FIT_STRIDE, device="cpu")
+        rec = {"truth_deg": None, "card_vs_cpu_deg": None}
+        for dtype in (torch.float32, torch.float64, None):
+            fit_gravity(field, K, FIT_STRIDE, device=device, dtype=dtype)  # warm
+            sync(device)
+            t0 = time.perf_counter()
+            fit = fit_gravity(field, K, FIT_STRIDE, device=device, dtype=dtype)
+            sync(device)
+            name = "default" if dtype is None else str(dtype).split(".")[-1]
+            rec[f"{name}_s"], rec[f"{name}_iterations"] = time.perf_counter() - t0, fit.iterations
+            if dtype == torch.float32:
+                rec["float32_vs_cpu_deg"] = _angle_deg(fit.gravity_cam, cpu.gravity_cam)
+            if dtype is None:
+                rec["truth_deg"] = _angle_deg(fit.gravity_cam, g)
+                rec["card_vs_cpu_deg"] = _angle_deg(fit.gravity_cam, cpu.gravity_cam)
+        rec["cpu_iterations"] = cpu.iterations
+        rows.append(rec)
+    summary = {k: [round(r[k], 6) if isinstance(r[k], float) else r[k] for r in rows] for k in rows[0]}
+    med = {k: statistics.median(r[k] for r in rows) for k in ("float32_s", "float64_s", "default_s")}
+    log(f"vertical (b): fit_gravity on {VERT_CAMERAS} analytic fields of {H}x{W} (stride {FIT_STRIDE}, noise {FIT_NOISE}, "
+        f"{FIT_OUTLIERS:.0%} outlier pixels): {json.dumps(summary)}; median seconds a camera {json.dumps({k: round(v, 5) for k, v in med.items()})} [{smi_line}]")
+    if not max(r["truth_deg"] for r in rows) < MAX_FIT_DEG:
+        raise AssertionError(f"vertical (b): a fit is more than {MAX_FIT_DEG} deg from its gravity")
+    if not max(r["card_vs_cpu_deg"] for r in rows) < CARD_VS_CPU_FIT_DEG:
+        raise AssertionError(f"vertical (b): the card's fit is more than {CARD_VS_CPU_FIT_DEG} deg from the CPU's")
+
+
+def canonical_dense_problem(device, n_points=N_POINTS, n_obs=N_OBS):
+    """The canonical BA problem as CaptureVolume.optimize builds it: (problem,
+    start cameras, start points, the host rows it was built from)."""
+    import numpy as np
+
+    from caliscope_tpu_torch import convert
+    from caliscope_tpu_torch.volume import CaptureVolume
+
+    _truth, start, cam_idx, pt_idx, uv, _X = synth_rig(n_points=n_points, n_obs=n_obs)
+    cameras = convert.camera_array(start)
+    ip = convert.image_points(
+        dict(sync_index=pt_idx, cam_id=cam_idx, object_id=np.zeros_like(pt_idx), keypoint_id=np.zeros_like(pt_idx), img_xy=uv)
+    )
+    volume = CaptureVolume(cameras, ip, ip.triangulate(cameras, device=device), device=device)
+    problem, cam9, X0 = volume.ba_problem()
+    _mask, ci, oi, xy, views = volume._matched_arrays()
+    rows = dict(cam_idx=ci, pt_idx=oi, uv=xy, K=views.K.numpy(), dist=views.dist.numpy(), fisheye=views.fisheye.numpy(),
+                n_points=X0.shape[0], cam9=cam9, X0=X0, device=str(device))
+    return problem, cam9, X0, rows
+
+
+def _shard_config():
+    from caliscope_tpu_torch.solvers import bundle
+
+    return bundle.BAConfig(max_iter=SHARD_ITERS, ftol=0.0, xtol=0.0, gtol=0.0, solver="schur")
+
+
+def timed_solve(device, problem, cam9, X0, mesh=None):
+    """One fixed-iteration solve: (result, ms per LM iteration, kernel 1
+    launches, all-reduces and bytes per iteration on the mesh)."""
+    from caliscope_tpu_torch.solvers import bundle
+    from caliscope_tpu_torch.solvers import fused_schur as FS
+
+    launches = FS.schur_s_rhs.launches
+    reduces, nbytes = (mesh.all_reduces, mesh.bytes_reduced) if mesh is not None else (0, 0)
+    sync(device)
+    t0 = time.perf_counter()
+    res = bundle.lm_solve(problem, cam9, X0, _shard_config(), mesh=mesh)
+    sync(device)
+    ms = 1e3 * (time.perf_counter() - t0) / res.n_iterations
+    comm = (None, None) if mesh is None else (
+        (mesh.all_reduces - reduces) / res.n_iterations, (mesh.bytes_reduced - nbytes) / res.n_iterations)
+    return res, ms, FS.schur_s_rhs.launches - launches, comm
+
+
+def sharded_worker(rank: int, port: int, folder: str) -> int:
+    """One of the two gloo ranks of (c), started by sharded_phase with
+    `--sharded-worker RANK PORT DIR`: solves DIR/problem.npz's problem on
+    its half of the points and writes DIR/rank{RANK}.npz."""
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    import caliscope_tpu_torch  # noqa: F401  (sets the TF32-off defaults)
+    from caliscope_tpu_torch.parallel import make_obs_mesh
+    from caliscope_tpu_torch.solvers import bundle
+    from caliscope_tpu_torch.solvers import fused_schur as FS
+
+    d = dict(np.load(Path(folder) / "problem.npz"))
+    device = torch.device(str(d["device"]))
+    first = {}
+
+    def recorded(*args):  # the blocks of this rank's first Schur assembly
+        first.setdefault("args", tuple(a.clone() for a in args))
+        return FS.schur_s_rhs(*args)
+
+    bundle.schur_s_rhs = recorded
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=SHARD_WORLD, rank=rank,
+                            timeout=timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        problem = bundle.make_dense_problem(d["cam_idx"], d["pt_idx"], d["uv"], d["K"], d["dist"], d["fisheye"],
+                                            n_points=int(d["n_points"]), device=device)
+        mesh = make_obs_mesh(device)
+        timed_solve(device, problem, d["cam9"], d["X0"], mesh)  # warm
+        res, ms, launches, (reduces, nbytes) = timed_solve(device, problem, d["cam9"], d["X0"], mesh)
+        process_launches = FS.schur_s_rhs.launches
+        args = first["args"]  # the kernel on them is a comparison launch, not the path's
+        got, want = FS.schur_s_rhs(*args), FS.schur_s_rhs_plain(*args)
+        errs = scaled_errors(got, want, args[3])
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        max_abs = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
+        np.savez(Path(folder) / f"rank{rank}.npz", cam9=res.cam9, X=res.X.cpu().numpy(), cost=res.cost_final,
+                 iters=res.n_iterations, ms=ms, launches=launches, process_launches=process_launches,
+                 reduces=reduces, bytes=nbytes, devices=res.n_devices, block_P=args[0].shape[-1],
+                 block_errs=np.array([errs[k] for k in ("S", "rhs", "Hpp_inv")]), block_finite=finite,
+                 block_max_abs=max_abs)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _poses(cam9):
+    """Rotations (C,3,3) and centers -R^T t (C,3) of (C,9) blocks
+    (Rodrigues in numpy)."""
+    import numpy as np
+
+    Rs, cs = [], []
+    for row in cam9:
+        th = np.linalg.norm(row[:3])
+        k = row[:3] / th if th > 0 else np.zeros(3)
+        Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        R = np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
+        Rs.append(R)
+        cs.append(-R.T @ row[3:6])
+    return np.array(Rs), np.array(cs)
+
+
+def pose_gaps(cam9, ref):
+    """How far a rig (C,9) is from a reference rig: its centers as they are
+    (m), and, after the similarity that best maps its centers onto the
+    reference's (the gauge a BA without a fixed camera leaves free), the
+    largest center distance (m) and rotation angle (rad); the largest
+    difference of the intrinsic columns [s, k1, k2], and of all nine
+    columns as they are, over their scale."""
+    import numpy as np
+
+    R_a, c_a = _poses(cam9)
+    R_b, c_b = _poses(ref)
+    mu_a, mu_b = c_a.mean(0), c_b.mean(0)
+    A, B = c_a - mu_a, c_b - mu_b
+    U, S, Vt = np.linalg.svd(B.T @ A / len(A))
+    D = np.eye(3)
+    D[2, 2] = np.sign(np.linalg.det(U @ Vt))
+    R = U @ D @ Vt
+    s = np.trace(np.diag(S) @ D) / np.mean(np.sum(A**2, 1))
+    c_aligned = s * A @ R.T + mu_b
+    # the angle between two rotations from ||Ra - Rb||_F = 2 sqrt(2) sin(angle / 2)
+    chord = max(np.linalg.norm(Ra @ R.T - Rb) for Ra, Rb in zip(R_a, R_b))
+    scale = np.maximum(np.abs(ref).max(axis=0), 1e-12)
+    return dict(
+        center_m=float(np.linalg.norm(c_a - c_b, axis=1).max()),
+        cam9_scaled=float((np.abs(cam9 - ref) / scale).max()),
+        aligned_center_m=float(np.linalg.norm(c_aligned - c_b, axis=1).max()),
+        aligned_rotation_rad=float(2 * np.arcsin(min(chord / (2 * np.sqrt(2)), 1.0))),
+        intrinsics_scaled=float((np.abs(cam9[:, 6:] - ref[:, 6:]) / scale[6:]).max()),
+    )
+
+
+def sharded_phase(device, smi_line, n_points=N_POINTS, n_obs=N_OBS):
+    """(c): the canonical problem on one placement, a world-size-1 NCCL mesh
+    and two gloo ranks sharing the card, a warm and a timed solve each at a
+    fixed iteration count. Returns kernel 1's launches (this process's
+    solves and both ranks')."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from caliscope_tpu_torch.parallel import make_obs_mesh
+    from caliscope_tpu_torch.solvers import fused_schur as FS
+
+    problem, cam9, X0, rows = canonical_dense_problem(device, n_points, n_obs)
+    log(f"sharded (c): {problem.n_cameras} cameras x {problem.n_points} bucketed points x "
+        f"{int(problem.obs_mask.sum())} observations, {SHARD_ITERS} LM iterations a solve")
+    FS.schur_s_rhs.launches = 0  # counts from here on are the sharded path's
+    timed_solve(device, problem, cam9, X0)  # warm
+    single, single_ms, single_launches, _ = timed_solve(device, problem, cam9, X0)
+    backend = "nccl" if device.type == "cuda" else "gloo"  # gloo: a rehearsal on the CPU
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_obs_mesh(device)
+        timed_solve(device, problem, cam9, X0, mesh)  # warm
+        nccl, nccl_ms, nccl_launches, (nccl_reduces, nccl_bytes) = timed_solve(device, problem, cam9, X0, mesh)
+    finally:
+        dist.destroy_process_group()
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(Path(tmp) / "problem.npz", **rows)
+        port = _free_port()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--sharded-worker", str(r), str(port), tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(SHARD_WORLD)]
+        errs = []
+        for p in procs:
+            try:
+                errs.append(p.communicate(timeout=SHARD_TIMEOUT_S)[1])
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                    q.communicate()
+                raise AssertionError("sharded (c): a gloo rank hung")
+        for p, err in zip(procs, errs):
+            if p.returncode != 0:
+                raise AssertionError(f"sharded (c): a gloo rank failed:\n{err[-3000:]}")
+        ranks = [dict(np.load(Path(tmp) / f"rank{r}.npz")) for r in range(SHARD_WORLD)]
+    # this process's solves and every solve of both ranks (warm-ups included)
+    launches = FS.schur_s_rhs.launches + sum(int(r["process_launches"]) for r in ranks)
+
+    runs = {"single": (single.cam9, single.cost_final, single.n_iterations, single_ms, single_launches, None, None),
+            f"{backend}_world_1": (nccl.cam9, nccl.cost_final, nccl.n_iterations, nccl_ms, nccl_launches, nccl_reduces, nccl_bytes)}
+    for i, r in enumerate(ranks):
+        runs[f"gloo_rank{i}"] = (r["cam9"], float(r["cost"]), int(r["iters"]), float(r["ms"]), int(r["launches"]),
+                                 float(r["reduces"]), float(r["bytes"]))
+    report = {}
+    for name, (c9, cost, iters, ms, n_launch, reduces, nbytes) in runs.items():
+        report[name] = dict(
+            ms_per_lm_iteration=round(ms, 4), iterations=iters, cost=cost, schur_launches=n_launch,
+            all_reduces_per_iteration=reduces, bytes_per_iteration=nbytes,
+            cost_rel=abs(cost - single.cost_final) / abs(single.cost_final), **pose_gaps(c9, single.cam9),
+        )
+    for i, r in enumerate(ranks):
+        errs = dict(zip(("S", "rhs", "Hpp_inv"), (float(e) for e in r["block_errs"])))
+        log(f"sharded (c): gloo rank {i}: kernel schur_s_rhs on its first LM iteration's blocks (C = {N_CAMERAS}, "
+            f"P = {int(r['block_P'])}): scaled max |kernel - plain| {errs} (rtol {BLOCK_RTOL}), "
+            f"max |diff| {float(r['block_max_abs']):.3e}")
+        if int(r["block_P"]) != -(-problem.n_points // SHARD_WORLD) or not bool(r["block_finite"]) or not all(
+                e <= BLOCK_RTOL for e in errs.values()):
+            raise AssertionError(f"sharded (c): gloo rank {i}: schur_s_rhs disagrees with its plain version on its shard's blocks")
+    same_bits = all(np.array_equal(ranks[0][k], ranks[1][k]) for k in ("cam9", "X", "cost"))
+    log(f"sharded (c): {json.dumps(report)}; the two gloo ranks' cam9, points and cost equal bit for bit: {same_bits} [{smi_line}]")
+    for name, rec in report.items():
+        if rec["iterations"] != SHARD_ITERS or rec["schur_launches"] != rec["iterations"]:
+            raise AssertionError(f"sharded (c): {name} ran {rec['iterations']} iterations and {rec['schur_launches']} Schur launches")
+        if not (rec["cost_rel"] <= SHARD_COST_RTOL and rec["aligned_rotation_rad"] <= SHARD_CAM9_RTOL
+                and rec["intrinsics_scaled"] <= SHARD_CAM9_RTOL and rec["aligned_center_m"] <= SHARD_CENTER_M
+                and rec["cam9_scaled"] <= SHARD_RAW_CAM9_RTOL and rec["center_m"] <= SHARD_RAW_CENTER_M):
+            raise AssertionError(f"sharded (c): {name} is not the single placement's solve: {rec}")
+    if not same_bits or int(ranks[0]["devices"]) != SHARD_WORLD or nccl.n_devices != 1:
+        raise AssertionError("sharded (c): the ranks disagree or the meshes have the wrong size")
+    return launches
+
+
+def vertical_and_sharded_phase(device, smi_line):
+    """(a)-(c). Returns kernel 1's launches on (c)."""
+    t0 = time.perf_counter()
+    geocalib_on_card(device, smi_line)
+    log(f"vertical (a): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    gravity_fits(device, smi_line)
+    log(f"vertical (b): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    launches = sharded_phase(device, smi_line)
+    log(f"sharded (c): {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2698,9 +3131,14 @@ def main() -> int:
     log(f"markerless phase: {time.perf_counter() - t0:.2f} s")
     entry["launches"] += markerless_launches
     entry["launches_by_path"]["markerless"] = markerless_launches
+    t0 = time.perf_counter()
+    sharded_launches = vertical_and_sharded_phase(device, smi_line)
+    log(f"vertical and sharded phase: {time.perf_counter() - t0:.2f} s")
+    entry["launches"] += sharded_launches
+    entry["launches_by_path"]["sharded"] = sharded_launches
     for i, e in enumerate(detect_entries):
         e["launches_by_path"] = ({"detection_slice": e["launches"]} | {path: n[i] for path, n in intr_launches.items()}
-                                 | {"markerless": 0})
+                                 | {"markerless": 0, "sharded": 0})
         e["launches"] = sum(e["launches_by_path"].values())
         e["tracker_shapes"] = tracker_shapes[e["name"]]
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, the kernels' build included")
@@ -2710,4 +3148,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--sharded-worker":
+        sys.exit(sharded_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())
