@@ -54,12 +54,22 @@ the per-camera aggregation) with the model downloader
 torch.distributed, one process a device (`parallel/`, `lm_solve(mesh=...)`
 and the `BAConfig.shard` policy); kernel 1 runs on each rank's points.
 
+Slice 8 carries the host shell: the media layer (`media/`: a reader and
+writer of uncompressed 8-bit QuickTime video, the sync mapping, the
+playback streamer), the repositories and `workspace.Workspace`, the
+scripting API (`api.py`), the streaming extraction
+(`pipelines/process_recording.py`), the presenters, the synthetic explorer
+and the CLI (`python -m caliscope_tpu_torch ... --device cpu|cuda`): a
+project folder of recordings goes to a calibrated rig and a
+reconstruction, its detection through kernels 2-4.
+
 Devices: every entry point (`calibrate_extrinsics`, `run_intrinsic_calibration`,
 `calibrate_intrinsics`, `solve_intrinsics`, `CaptureVolume`, `lm_solve`,
 `ImagePoints.triangulate`, `WorldPoints.smooth`, `reconstruct_xyz`, the
 three target trackers, `OnnxTracker`, `OnnxTorchSession`, `detect_markers`,
 `detect_x_corners_device`, `fit_gravity`, the vertical estimators,
-`make_obs_mesh`) runs on the CUDA device unless the caller passes
+`make_obs_mesh`, `Workspace`, the presenters, `CameraData.undistort_frame`,
+the CLI) runs on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device it raises instead of falling back.
 The solves' float dtype follows the device unless given: float32 on CUDA,
 float64 on the CPU (the JAX package's x64 parity convention). The intrinsic

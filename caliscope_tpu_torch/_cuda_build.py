@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -33,6 +34,13 @@ KERNELS = ("schur_s_rhs", "ccl", "corner_response", "extract_windows")
 build_logs: dict[str, str] = {}
 build_seconds: dict[str, float] = {}
 _libs: dict[str, ctypes.CDLL] = {}
+# One lock a kernel serialises its build and load, so threads that reach a
+# kernel first at the same time build it once; other kernels build in
+# parallel (build_all). `_locks_lock` guards the dictionary of locks, and
+# `_count_lock` the launch counters of the kernels' wrappers.
+_locks: dict[str, threading.Lock] = {}
+_locks_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def source_path(name: str) -> Path:
@@ -57,9 +65,19 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
+def _kernel_lock(name: str) -> threading.Lock:
+    with _locks_lock:
+        return _locks.setdefault(name, threading.Lock())
+
+
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu unless a library built from the same source
     and flags is already there. Returns the library's path."""
+    with _kernel_lock(name):
+        return _build_locked(name)
+
+
+def _build_locked(name: str) -> Path:
     out = library_path(name)
     if out.exists():
         # reused: this process ran no build of it (unless an earlier call did)
@@ -67,7 +85,7 @@ def build(name: str) -> Path:
         build_logs.setdefault(name, "")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{out.name}.{os.getpid()}.tmp"
+    tmp = BUILD_DIR / f".{out.name}.{os.getpid()}.{threading.get_ident()}.tmp"
     t0 = time.perf_counter()
     proc = subprocess.run(
         [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))],
@@ -92,9 +110,19 @@ def build_all(names=KERNELS) -> dict[str, Path]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built first if need be. The
     caller sets argtypes and restypes of the functions it calls."""
-    if name not in _libs:
-        _libs[name] = ctypes.CDLL(str(build(name)))
-    return _libs[name]
+    with _kernel_lock(name):
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(str(_build_locked(name)))
+        return _libs[name]
+
+
+def count_launch(wrapper, *counters: str) -> None:
+    """Add one to each named counter attribute of a kernel's wrapper
+    (`launches` and the like), exactly under threads: the extraction runs
+    one thread a camera through the same wrappers."""
+    with _count_lock:
+        for counter in counters:
+            setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
 def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:

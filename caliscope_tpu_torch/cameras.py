@@ -7,9 +7,10 @@ matrices (C,3,4)) on the requested device, keyed by a deterministic
 cam_id -> index map. The TOML schema and writer are the JAX package's, so
 files round-trip byte for byte between the two packages.
 
-Not ported yet: `CameraData.undistort_frame` and
-`CameraArray.from_video_metadata` (they need the media layer, a later
-slice).
+`CameraData.undistort_frame` applies its remap grid with
+`torch.nn.functional.grid_sample` on the frame's device, where the JAX
+package calls cv2.remap; `CameraArray.from_video_metadata` reads sizes
+through the port's media layer.
 """
 
 from __future__ import annotations
@@ -129,6 +130,45 @@ class CameraData:
             lambda uv, K, d: undistort_points(uv, K, d, self.fisheye, output=output),
             pts, self.matrix, self.distortions,
         )
+
+    def undistort_grid(self, height: int, width: int) -> np.ndarray:
+        """(h, w, 2) float32 source pixel of each destination pixel: ideal
+        normalized -> distorted -> pixels through this camera's model
+        (reference camera_array.py:176-209, initUndistortRectifyMap),
+        computed once per frame size in float64 on the host."""
+        from caliscope_tpu_torch.ops.projection import distort_normalized, normalized_to_pixels, pixels_to_normalized
+
+        grid = getattr(self, "_undistort_grid", None)
+        if grid is None or grid.shape[:2] != (height, width):
+            ys, xs = np.mgrid[0:height, 0:width]
+            uv = np.stack([xs, ys], axis=-1).reshape(-1, 2).astype(np.float64)
+            src = _host(
+                lambda p, K, d: normalized_to_pixels(distort_normalized(pixels_to_normalized(p, K), d, self.fisheye), K),
+                uv, self.matrix, np.ravel(self.distortions),
+            )
+            grid = src.reshape(height, width, 2).astype(np.float32)
+            self._undistort_grid = grid
+        return grid
+
+    def undistort_frame(self, frame, device=None):
+        """Undistort a full uint8 frame ((h, w) or (h, w, 3)) through
+        `undistort_grid`, bilinearly with a zero border, on the frame's
+        device for a tensor (which comes back as a tensor) and on `device`
+        (CUDA unless named) for a numpy array (which comes back as numpy).
+        The JAX package applies the same grid with cv2.remap(INTER_LINEAR);
+        the two part by at most one grey level (rounding of the weights and
+        of grid_sample's normalized coordinates)."""
+        if not self.has_intrinsics:
+            raise CalibrationError(f"Camera {self.cam_id} lacks intrinsic calibration; cannot undistort frames.")
+        as_numpy = not isinstance(frame, torch.Tensor)
+        img = torch.from_numpy(np.ascontiguousarray(frame)).to(resolve_device(device)) if as_numpy else frame
+        h, w = img.shape[:2]
+        grid = torch.from_numpy(self.undistort_grid(h, w)).to(img.device)
+        norm = torch.stack([grid[..., 0] * (2.0 / max(w - 1, 1)) - 1.0, grid[..., 1] * (2.0 / max(h - 1, 1)) - 1.0], dim=-1)
+        planes = img.reshape(h, w, -1).permute(2, 0, 1)[None].to(torch.float32)
+        out = torch.nn.functional.grid_sample(planes, norm[None], mode="bilinear", padding_mode="zeros", align_corners=True)
+        out = torch.floor(out[0].permute(1, 2, 0) + 0.5).clamp(0, 255).to(torch.uint8).reshape(img.shape)
+        return out.cpu().numpy() if as_numpy else out
 
     def project_points(self, X: np.ndarray) -> np.ndarray:
         """World points (N,3) -> pixels (N,2) through this camera (host)."""
@@ -277,6 +317,19 @@ class CameraArray:
         cam = self.cameras[cam_id]
         cam.rotation = so3_exp_host(rvec)
         cam.translation = np.asarray(tvec, dtype=np.float64)
+
+    @classmethod
+    def from_video_metadata(cls, videos: dict[int, "Path | str"]) -> "CameraArray":
+        """Uncalibrated cameras sized from video headers (reference
+        docs/scripting.md step 2): {cam_id: video_path} -> CameraArray with
+        resolution read from each file, no intrinsics/extrinsics yet."""
+        from caliscope_tpu_torch.media import read_video_properties
+
+        cams = {}
+        for cid, path in videos.items():
+            props = read_video_properties(Path(path))
+            cams[int(cid)] = CameraData(cam_id=int(cid), size=props.size)
+        return cls(cams)
 
     # ---- persistence -------------------------------------------------------
     @classmethod

@@ -148,8 +148,7 @@ def connected_components(mask, n_iters: int = 4):
         else:
             err = lib.ccl_resident_launch(mask.data_ptr(), labels.data_ptr(), B, H, W, n_iters, *plan, stream)
     _cuda_build.check_launch(lib, "ccl", err)
-    connected_components.launches += 1
-    connected_components.resident_launches += plan is not None
+    _cuda_build.count_launch(connected_components, "launches", *(("resident_launches",) if plan else ()))
     return labels
 
 

@@ -144,7 +144,7 @@ def corner_response(images):
             images.data_ptr(), out.data_ptr(), B, H, W, PAD, torch.cuda.current_stream(images.device).cuda_stream
         )
     _cuda_build.check_launch(lib, "corner_response", err)
-    corner_response.launches += 1
+    _cuda_build.count_launch(corner_response, "launches")
     return out
 
 
@@ -195,7 +195,7 @@ def extract_windows(frames, yi, xi, win: int):
             torch.cuda.current_stream(frames.device).cuda_stream,
         )
     _cuda_build.check_launch(lib, "extract_windows", err)
-    extract_windows.launches += 1
+    _cuda_build.count_launch(extract_windows, "launches")
     return out
 
 

@@ -11,8 +11,8 @@ resizes on the session's device as cv2.resize(INTER_LINEAR) does
 (pose/onnx_tracker.py::resize_linear_u8, within 1 gray level of OpenCV),
 swaps the channels in torch and runs the network through the port's
 executor (OnnxTorchSession). Its frames path, `estimate_vertical_from_frames`,
-takes decoded frames; `estimate_vertical`, which reads video files through
-the JAX package's media layer, waits for that layer (ROADMAP.md item 25).
+takes decoded frames; `estimate_vertical` reads them from video files
+through the port's media layer (uncompressed QuickTime, media/video.py).
 """
 
 from __future__ import annotations
@@ -181,9 +181,18 @@ def estimate_vertical(
     K_by_camera: Mapping[int, np.ndarray],
     models_dir: Path | str,
     n_sample_frames: int = 6,
+    device=None,
+    dtype=None,
 ) -> VerticalEstimate:
-    """Sample each video's frames into `estimate_vertical_from_frames`. Not
-    ported: the port has no video decoder yet."""
-    from caliscope_tpu_torch.solvers.bundle import not_ported
+    """Full path: `n_sample_frames` frames spread over each video (BGR) ->
+    `estimate_vertical_from_frames` on `device` (CUDA unless named). The
+    model is downloaded on first use."""
+    from caliscope_tpu_torch.media import FrameSource, read_video_properties
 
-    raise not_ported("Vertical estimation from video files", "item 25, the media layer")
+    frames: dict[int, list[np.ndarray]] = {}
+    for cid, video in videos.items():
+        props = read_video_properties(video)
+        wanted = set(np.linspace(0, max(props.frame_count - 1, 0), n_sample_frames, dtype=int).tolist())
+        with FrameSource(video, cid, wanted_indices=wanted) as src:
+            frames[cid] = [pkt.frame for pkt in src]
+    return estimate_vertical_from_frames(frames, K_by_camera, models_dir, device=device, dtype=dtype)

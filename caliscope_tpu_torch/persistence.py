@@ -9,7 +9,8 @@ so camera_array.toml / aniposelib TOML round-trip bit-compatibly in structure.
 Host-only copy of caliscope_tpu/persistence.py, plus a pandas-free CSV
 reader/writer: the JAX package goes through pandas at the CSV boundary, and
 the port writes the same bytes (header, ``repr`` floats, empty cells for
-NaN, ``\n`` line ends) with the standard library alone.
+NaN, ``\n`` line ends) with the standard library alone; and a grey 8-bit
+PNG encoder (zlib and struct), where the JAX package goes through PIL.
 """
 
 from __future__ import annotations
@@ -17,8 +18,10 @@ from __future__ import annotations
 import csv
 import math
 import os
+import struct
 import tempfile
 import tomllib
+import zlib
 from pathlib import Path
 from typing import Any
 
@@ -26,7 +29,7 @@ from caliscope_tpu_torch.exceptions import PersistenceError
 
 __all__ = [
     "PersistenceError", "load_toml", "read_csv_columns", "safe_write_toml", "safe_write_text",
-    "toml_dumps", "write_csv_columns",
+    "toml_dumps", "write_csv_columns", "write_png_gray",
 ]
 
 
@@ -94,13 +97,13 @@ def toml_dumps(data: dict) -> str:
     return "\n".join(out).lstrip("\n") + "\n"
 
 
-def _atomic_write(path: Path, text: str) -> None:
+def _atomic_write(path: Path, data: str | bytes) -> None:
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=path.parent, prefix="." + path.name + ".", suffix=".tmp")
     try:
-        with os.fdopen(fd, "w") as f:
-            f.write(text)
+        with os.fdopen(fd, "wb" if isinstance(data, bytes) else "w") as f:
+            f.write(data)
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)
@@ -158,3 +161,25 @@ def read_csv_columns(path: Path | str) -> dict[str, list[str]]:
         raise PersistenceError(f"CSV file {path} has no header row")
     header, body = rows[0], rows[1:]
     return {name: [r[i] if i < len(r) else "" for r in body] for i, name in enumerate(header)}
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def write_png_gray(image, path: Path | str) -> None:
+    """Write a (H, W) uint8 array as a grey 8-bit PNG: one IHDR, one IDAT
+    of zlib-compressed rows each led by filter type 0 (none), IEND."""
+    if image.ndim != 2 or image.dtype.name != "uint8":
+        raise PersistenceError(f"write_png_gray takes a (H, W) uint8 array, got {image.shape} {image.dtype}")
+    h, w = image.shape
+    rows = bytearray()
+    for row in image:
+        rows += b"\x00" + row.tobytes()
+    _atomic_write(
+        Path(path),
+        b"\x89PNG\r\n\x1a\n"
+        + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+        + _png_chunk(b"IDAT", zlib.compress(bytes(rows), 6))
+        + _png_chunk(b"IEND", b""),
+    )

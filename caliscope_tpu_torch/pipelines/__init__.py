@@ -1,7 +1,7 @@
 """Use-case pipelines: the production calibration flows.
 
-Port of caliscope_tpu/pipelines/ (the extrinsic and intrinsic pipelines so
-far; process_recording waits for the media layer, ROADMAP.md item 25).
+Port of caliscope_tpu/pipelines/ (the extrinsic and intrinsic pipelines,
+and process_recording, the streaming multicamera extraction).
 """
 
 from caliscope_tpu_torch.pipelines.calibrate_extrinsics import (  # noqa: F401

@@ -177,7 +177,7 @@ def schur_s_rhs(Jc, Jp, w, bp_t, lam):
             C, P, n_blocks, torch.cuda.current_stream(device).cuda_stream,
         )
     _cuda_build.check_launch(lib, "schur_s_rhs", err)
-    schur_s_rhs.launches += 1
+    _cuda_build.count_launch(schur_s_rhs, "launches")
     return S, rhs, hinv
 
 

@@ -2,11 +2,10 @@
 
 Port of caliscope_tpu/synthetic/ (SE3Pose, Trajectory, CalibrationObject,
 CameraSynthesizer, SyntheticScene, scene factories, fault injection, the
-fixture repository).
+fixture repository, the explorer presenter).
 Scenes fabricate exact ground truth so the solver stack is tested end to
 end deterministically. numpy throughout; projection through the port's
-CameraData. Not ported yet: explorer.py (GUI signals and the task manager,
-ROADMAP.md queue 1 item 25).
+CameraData.
 """
 
 from caliscope_tpu_torch.synthetic.se3 import SE3Pose  # noqa: F401

@@ -232,15 +232,15 @@ class Charuco:
 
     # ---- rendering ----------------------------------------------------------
     def save_image(self, path, px_per_square: int = 300, mirror: bool = False) -> None:
-        """Write the printable board as a PNG (reference charuco.py:275
-        save_image / save_mirror_image — high-resolution print export).
-        PIL carries the encode, so no OpenCV dependency."""
-        from PIL import Image
+        """Write the printable board as a grey 8-bit PNG (reference
+        charuco.py:275 save_image / save_mirror_image — high-resolution print
+        export), encoded with the standard library (persistence.write_png_gray)."""
+        from caliscope_tpu_torch import persistence
 
         img = self.board_image(px_per_square=px_per_square)
         if mirror:
             img = img[:, ::-1]
-        Image.fromarray(np.ascontiguousarray(img)).save(str(path))
+        persistence.write_png_gray(np.ascontiguousarray(img), path)
 
     def save_mirror_image(self, path, px_per_square: int = 300) -> None:
         self.save_image(path, px_per_square=px_per_square, mirror=True)

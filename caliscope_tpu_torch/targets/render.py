@@ -40,6 +40,26 @@ def warp_perspective(img: np.ndarray, H: np.ndarray, out_wh: tuple[int, int], bo
     `border_value`."""
     w, h = out_wh
     Hs, Ws = img.shape
+    # Where the source, grown by the one-pixel apron its bilinear taps reach,
+    # lands in front of the view (w > 0 at its corners, so everywhere), only
+    # the bounding box of its outline can take a source tap: every other
+    # pixel is border_value, and the box is all that is sampled.
+    apron = np.array([[-1.0, -1.0, 1.0], [Ws, -1.0, 1.0], [Ws, Hs, 1.0], [-1.0, Hs, 1.0]]) @ np.asarray(H, np.float64).T
+    if np.all(apron[:, 2] > 0):
+        uv = apron[:, :2] / apron[:, 2:3]
+        x0b, y0b = (max(int(np.floor(v)) - 1, 0) for v in uv.min(axis=0))
+        x1b, y1b = min(int(np.ceil(uv[:, 0].max())) + 2, w), min(int(np.ceil(uv[:, 1].max())) + 2, h)
+        out = np.full((h, w), np.uint8(np.clip(np.rint(border_value), 0, 255)))
+        if x0b < x1b and y0b < y1b:
+            shift = np.array([[1.0, 0.0, x0b], [0.0, 1.0, y0b], [0.0, 0.0, 1.0]])
+            out[y0b:y1b, x0b:x1b] = _warp_all(img, np.linalg.inv(shift) @ H, (x1b - x0b, y1b - y0b), border_value)
+        return out
+    return _warp_all(img, H, out_wh, border_value)
+
+
+def _warp_all(img: np.ndarray, H: np.ndarray, out_wh: tuple[int, int], border_value: float) -> np.ndarray:
+    w, h = out_wh
+    Hs, Ws = img.shape
     ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
     Hi = np.linalg.inv(H)
     den = Hi[2, 0] * xs + Hi[2, 1] * ys + Hi[2, 2]

@@ -38,12 +38,14 @@ carried over.
 from __future__ import annotations
 
 import logging
+import threading
 
 import numpy as np
 import torch
 
 from caliscope_tpu_torch.detect.aruco import assemble_marker_detections, detect_markers, marker_graph
 from caliscope_tpu_torch.detect.corners import detect_x_corners_device, xcorner_graph
+from caliscope_tpu_torch.detect.cuda_kernels import PAD
 from caliscope_tpu_torch.detect.dictionaries import get_dictionary
 from caliscope_tpu_torch.device import resolve_device
 from caliscope_tpu_torch.packets import PixelFormat, PointPacket
@@ -220,6 +222,7 @@ class CharucoTracker(Tracker):
         self.upload_bits = upload_bits
         self.device = resolve_device(device)
         self.dispatches = 0  # device-program dispatches since construction
+        self._dispatch_lock = threading.Lock()  # one thread a camera may share the tracker
         self._mirror_hint: dict[int, bool] = {}  # cam_id -> saw mirrored last
         self._marker_board_corners = self._compute_marker_board_corners()
         self._inner_corners_2d = None  # cached board geometry
@@ -301,7 +304,8 @@ class CharucoTracker(Tracker):
                     images, d.marker_size, MARKER_KMAX, MARKER_PATCH, min_area, CCL_ITERS, X_CORNER_KMAX, pack4
                 )
             )
-            self.dispatches += 1
+            with self._dispatch_lock:
+                self.dispatches += 1
         for ci_, out in enumerate(outs):
             s = ci_ * chunk
             e = min(s + chunk, B)
@@ -451,11 +455,23 @@ class CharucoTracker(Tracker):
                 spacing[:-1] = np.minimum(spacing[:-1], dv)
             return self.snap_radius_frac * spacing.reshape(n)
 
+        h_img, w_img = gray.shape[:2]
+
         def snap(expected, radii):
             d2 = np.sum((expected[:, None, :] - cand[None, :, :]) ** 2, axis=2)
             nearest = np.argmin(d2, axis=1)
             dist = np.sqrt(d2[np.arange(len(expected)), nearest])
-            keep = dist < radii
+            # A corner the homography places outside the frame, or in the
+            # border where the ring response is zero (PAD px), gives no
+            # candidate of its own; the JAX package snaps it to whatever
+            # candidate lies within the radius (an X-response where the board
+            # meets the frame's edge), up to ~30 px off. The port keeps only
+            # corners expected inside the response's border.
+            inside = (
+                (expected[:, 0] >= PAD) & (expected[:, 0] <= w_img - 1 - PAD)
+                & (expected[:, 1] >= PAD) & (expected[:, 1] <= h_img - 1 - PAD)
+            )
+            keep = (dist < radii) & inside
             chosen: dict[int, int] = {}
             for k in np.where(keep)[0]:
                 c = int(nearest[k])

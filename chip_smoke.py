@@ -99,8 +99,31 @@ on any failed check. Phases:
    a Schur solve on each rank and held to its plain version on each rank's
    first LM iteration's blocks (P = 20,480); ms per LM iteration and the
    all-reduces and bytes per iteration.
-10. A `kernels` JSON line (each detection kernel with its launches on every
-   path, `launches_by_path`), then the last line
+10. Workspace: a user's project folder, from recordings to a calibrated rig
+   and a reconstruction, through the port's CLI in process
+   (caliscope_tpu_torch.__main__.main: init, export-board, status,
+   calibrate-intrinsics, extract, calibrate-extrinsics, reconstruct,
+   status). The JAX suite's end-to-end recipe (tests/test_workspace_e2e.py)
+   at 1280x720: 4 cameras in a ring, 30 intrinsic and 96 extrinsic frames
+   each and a 32-frame recording of a moving board, rendered in numpy (in
+   spawned processes) and written as uncompressed grey QuickTime cam_N.mp4
+   files by the port's writer. Gated on every frame decoding to the frame
+   written and the containers' size, rate and count; each camera's
+   intrinsic RMSE < 1 px and focal within 3 %; more than 500 observations
+   from every camera; extrinsic RMSE < 1 px, camera centres within 2 cm
+   and scale within 3 % after a similarity; every workflow step COMPLETE;
+   the capture volume reloading with its RMSE; the recording's board
+   corners within 1 cm (median) and its CSV and TRC; kernels 2-4 launched
+   as many times as the trackers dispatched (one thread a camera), kernel 1
+   not at all (the ChArUco truss closes its gate); multicamera extraction
+   with 1 and 4 threads giving the same rows; the playback streamer
+   tracking every frame of the recording; the card within 0.05 px of the
+   port's CPU run on camera 0's first 16 extrinsic frames with the board;
+   `gui` raising not_ported. Prints seconds a
+   step, decode MB/s and frames/s a camera, extraction frames/s, the
+   device's idle share during `extract`, launches a step, peak memory.
+11. A `kernels` JSON line (each kernel with its launches on every path,
+   `launches_by_path`), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each slice's launch counts are set to 0 just before it is driven and read
@@ -3048,6 +3071,470 @@ def vertical_and_sharded_phase(device, smi_line):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Workspace phase: a user's project folder of recordings, through the CLI,
+# to a calibrated rig and a reconstruction
+# ---------------------------------------------------------------------------
+
+# tests/test_workspace_e2e.py:47-146 at full frame width: its 640 x 480 at
+# f = 900 px becomes 1280 x 720 at f scaled with the width; the board
+# image's 84 px a square likewise.
+WS_WH = (1280, 720)
+WS_F = 900.0 * WS_WH[0] / 640
+WS_CAMERAS = 4
+WS_INTRINSIC_FRAMES = 30
+WS_STATIONS, WS_PER_STATION = 8, 12
+WS_RECORDING_FRAMES = 32
+WS_BOARD = (5, 7, 0.09)  # rows, columns, square (m)
+WS_SQ_PX = 84 * WS_WH[0] // 640
+WS_CENTER = (0.0, 0.0, 0.55)
+WS_BLUR_SIGMA = 0.7
+WS_FPS = 30.0
+WS_SEED = 3
+WS_RENDER_WORKERS = 8
+# the JAX suite's own bounds (tests/test_workspace_e2e.py:163-204)
+WS_MAX_RMSE_PX = 1.0
+WS_MAX_FOCAL_REL = 0.03
+WS_MIN_OBSERVATIONS = 500
+WS_MAX_CENTER_M = 0.02
+WS_MAX_SCALE_REL = 0.03
+WS_MAX_RECON_MEDIAN_M = 0.01
+WS_CLIP_FRAMES = 16
+
+
+def ws_rot(axis, ang):
+    import numpy as np
+
+    axis = np.asarray(axis, float)
+    axis = axis / np.linalg.norm(axis)
+    K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(ang) * K + (1 - np.cos(ang)) * K @ K
+
+
+def ws_cameras(n=None, wh=None, f=None):
+    """{cam_id: (K, R, t)}: a ring of pinhole cameras aimed at the working
+    volume, zero distortion (the recipe's _gt_cameras). Arguments left None
+    take the WS_ constants."""
+    import numpy as np
+
+    n, wh, f = n or WS_CAMERAS, wh or WS_WH, f or WS_F
+    center = np.asarray(WS_CENTER)
+    cams = {}
+    for i in range(n):
+        a = 2 * np.pi * i / n
+        c = np.array([1.8 * np.cos(a), 1.8 * np.sin(a), 0.7])
+        z = (center - c) / np.linalg.norm(center - c)
+        x = np.cross(np.array([0.0, 0.0, 1.0]), z)
+        x /= np.linalg.norm(x)
+        y = np.cross(z, x)
+        R = np.stack([x, y, z])
+        K = np.array([[f, 0, wh[0] / 2], [0, f, wh[1] / 2], [0, 0, 1.0]])
+        cams[i] = (K, R, -R @ c)
+    return cams
+
+
+def _board_offset(R):
+    import numpy as np
+
+    rows, cols, sq = WS_BOARD
+    return R @ np.array([cols * sq / 2, rows * sq / 2, 0.0])
+
+
+def ws_intrinsic_poses(cams, n, seed=WS_SEED):
+    """{cam_id: [(R, t) board poses]}: the board waved in front of each
+    camera, its printed face toward it (one generator across the cameras,
+    drawn in the recipe's order)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for cid, (K, R, t) in cams.items():
+        center = -R.T @ t
+        fwd = R.T @ np.array([0, 0, 1.0])
+        poses = []
+        for k in range(n):
+            pos = center + fwd * (1.0 + 0.8 * (k % 10) / 10)
+            Rb = R.T @ ws_rot(rng.normal(size=3), rng.uniform(0.05, 0.55))
+            poses.append((Rb, pos - _board_offset(Rb) + rng.uniform(-0.06, 0.06, 3)))
+        out[cid] = poses
+    return out
+
+
+def ws_station_poses(n_stations, n_per):
+    """The extrinsic sweep: the board pauses at 8 azimuths with tilt and
+    height variation; the same poses for every camera."""
+    import numpy as np
+
+    poses = []
+    for k in range(n_stations * n_per):
+        station, j = k // n_per, k % n_per
+        az = 2 * np.pi * station / 8
+        poses.append(_sweep_pose(az, j, n_per, station))
+    return poses
+
+
+def _sweep_pose(az, j, n_per, phase):
+    import numpy as np
+
+    tilt = 1.25 + 0.15 * np.sin(2 * np.pi * j / n_per)
+    pos = np.asarray(WS_CENTER) + np.array(
+        [0.05 * np.cos(az + j), 0.05 * np.sin(az + j), 0.12 * np.sin(2 * np.pi * j / n_per + phase)]
+    )
+    Rb = ws_rot([0, 0, 1], az) @ ws_rot([1, 0, 0], tilt)
+    return Rb, pos - _board_offset(Rb)
+
+
+def ws_recording_poses(n, n_per):
+    """The recording: the sweep's board turning once around the vertical,
+    continuously, over n frames (each pose is seen by about two cameras)."""
+    import numpy as np
+
+    return [_sweep_pose(2 * np.pi * k / n, k, n_per, 0) for k in range(n)]
+
+
+def ws_board_corners_world(pose):
+    """(N, 3) world positions of the board's inner corners, in keypoint order."""
+    import numpy as np
+
+    rows, cols, sq = WS_BOARD
+    k = np.arange((rows - 1) * (cols - 1))
+    local = np.stack([(k % (cols - 1) + 1) * sq, (k // (cols - 1) + 1) * sq, np.zeros(len(k))], axis=1)
+    Rb, tb = pose
+    return local @ Rb.T + tb
+
+
+def ws_render(board_img, sq_px, cam, pose, wh):
+    """One grey frame of the board at `pose` through `cam`: the exact
+    homography warp of the board image (numpy), white where the board is
+    behind the camera or shows its back, then the recipe's 3 x 3 blur."""
+    import numpy as np
+
+    from caliscope_tpu_torch.targets import render
+
+    rows, cols, sq = WS_BOARD
+    K, R, t = cam
+    Rb, tb = pose
+    corners_m = np.array([[0, 0, 0], [cols * sq, 0, 0], [cols * sq, rows * sq, 0], [0, rows * sq, 0]], float)
+    world = corners_m @ Rb.T + tb
+    camf = world @ R.T + t
+    white = np.full((wh[1], wh[0]), 255, np.uint8)
+    if (camf[:, 2] < 0.1).any():
+        return white
+    normal = Rb @ np.array([0.0, 0.0, -1.0])  # the printed face looks along board -z
+    if np.dot(-R.T @ t - world.mean(axis=0), normal) <= 0.05:
+        return white
+    uv = (camf / camf[:, 2:3]) @ K.T
+    margin = sq_px // 2
+    src = margin + corners_m[:, :2] / sq * sq_px - 0.5
+    H = render.homography_from_points(src, uv[:, :2])
+    img = render.warp_perspective(board_img, H, wh).astype(np.float64)
+    k = np.exp(-np.array([1.0, 0.0, 1.0]) / (2.0 * WS_BLUR_SIGMA**2))
+    k /= k.sum()
+    p = np.pad(img, 1, mode="reflect")
+    rows_ = k[0] * p[:, :-2] + k[1] * p[:, 1:-1] + k[2] * p[:, 2:]
+    out = k[0] * rows_[:-2] + k[1] * rows_[1:-1] + k[2] * rows_[2:]
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def ws_board():
+    from caliscope_tpu_torch.targets.charuco import Charuco
+
+    rows, cols, sq = WS_BOARD
+    return Charuco(rows=rows, columns=cols, square_size_m=sq)
+
+
+def ws_render_video(task):
+    """Render one camera's video and write it as grey QuickTime with the
+    port's writer. task = (path, cam, poses, wh, sq_px, fps). Returns each
+    frame's CRC-32. Runs in a worker process."""
+    import zlib
+
+    from caliscope_tpu_torch.media.quicktime import RawQuickTimeWriter
+
+    path, cam, poses, wh, sq_px, fps = task
+    board_img = ws_board().board_image(px_per_square=sq_px, margin_squares=0.5)
+    crcs = []
+    with RawQuickTimeWriter(path, wh, fps, "gray") as w:
+        for pose in poses:
+            frame = ws_render(board_img, sq_px, cam, pose, wh)
+            w.write(frame)
+            crcs.append(zlib.crc32(frame.tobytes()))
+    return crcs
+
+
+def ws_render_workspace(root, cams):
+    """Render the project's videos (the WS_ constants' sizes and counts) into
+    the folders of workspace `root` (calibration/intrinsic,
+    calibration/extrinsic, recordings/rec0), one video a task on
+    WS_RENDER_WORKERS spawned processes (1: in this process). Returns
+    ({path: [CRC-32 a frame]}, the recording's board poses)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    root = Path(root)
+    wh, sq_px, workers = WS_WH, WS_SQ_PX, WS_RENDER_WORKERS
+    intrinsic = ws_intrinsic_poses(cams, WS_INTRINSIC_FRAMES)
+    stations = ws_station_poses(WS_STATIONS, WS_PER_STATION)
+    rec = ws_recording_poses(WS_RECORDING_FRAMES, WS_PER_STATION)
+    tasks = []
+    for cid, cam in cams.items():
+        tasks.append((root / "calibration" / "intrinsic" / f"cam_{cid}.mp4", cam, intrinsic[cid], wh, sq_px, WS_FPS))
+        tasks.append((root / "calibration" / "extrinsic" / f"cam_{cid}.mp4", cam, stations, wh, sq_px, WS_FPS))
+        tasks.append((root / "recordings" / "rec0" / f"cam_{cid}.mp4", cam, rec, wh, sq_px, WS_FPS))
+    tasks.sort(key=lambda task: -len(task[2]))  # the long videos first
+    if workers <= 1:
+        crcs = [ws_render_video(task) for task in tasks]
+    else:
+        with ProcessPoolExecutor(max_workers=workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+            crcs = list(pool.map(ws_render_video, tasks))
+    return {task[0]: c for task, c in zip(tasks, crcs)}, rec
+
+
+@contextmanager
+def _recording_attr(owner, name, record):
+    """Route owner.name(...) through a recorder that keeps its result (or,
+    for a report printer, its first argument) in `record`."""
+    original = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        out = original(*args, **kwargs)
+        record.append(out if out is not None else args[0])
+        return out
+
+    setattr(owner, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(owner, name, original)
+
+
+def _cuda_activity(device, fn):
+    """fn() under torch.profiler with CUDA activity only: (its result, wall
+    s, device s as the sum of its GPU kernels' durations, GPU kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        sync(device)
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return out, wall, sum(e.time_range.elapsed_us() for e in kernels) / 1e6, len(kernels)
+
+
+def workspace_phase(device, smi_line):
+    """Build a workspace of rendered 1280x720 recordings and drive it through
+    the CLI in process, from the videos to a calibrated rig and a
+    reconstruction, on the card. Returns ((ccl, response, windows) launches
+    on the phase's main path, Schur kernel launches on it)."""
+    import tempfile
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from caliscope_tpu_torch import __main__ as cli
+    from caliscope_tpu_torch import reporting
+    from caliscope_tpu_torch.api import extract_image_points, extract_image_points_multicam
+    from caliscope_tpu_torch.media import FrameSource, read_video_properties
+    from caliscope_tpu_torch.media.streamer import FramePacketStreamer
+    from caliscope_tpu_torch.media.video import write_gray_video
+    from caliscope_tpu_torch.observations import ImagePoints, WorldPoints
+    from caliscope_tpu_torch.ops.similarity import umeyama
+    from caliscope_tpu_torch.packets import PixelFormat, TrackedFrame
+    from caliscope_tpu_torch.repositories import TargetRouting
+    from caliscope_tpu_torch.solvers import fused_schur
+    from caliscope_tpu_torch.trackers import CharucoTracker
+    from caliscope_tpu_torch.workspace import StepStatus, Workspace
+
+    log(f"workspace phase on {smi_line}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ws_") as tmp:
+        root = Path(tmp) / "ws"
+        seconds, launches_by_step = {}, {}
+
+        def step(name, *argv):
+            before = _detect_counts()[0]
+            t0 = time.perf_counter()
+            rc = cli.main([name, str(root), *argv, "--device", str(device)])
+            sync(device)
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+            launches_by_step[name] = tuple(a - b for a, b in zip(_detect_counts()[0], before))
+            if rc != 0:
+                raise AssertionError(f"workspace: `{name}` returned {rc}")
+
+        step("init")
+        ws = Workspace(root, device=device)
+        board = ws_board()
+        ws.targets.save_intrinsic_charuco(board)  # as the JAX suite's recipe sets the project's board
+        ws.targets.save_routing(TargetRouting(intrinsic="charuco", extrinsic="charuco"))
+        cams = ws_cameras()
+        t0 = time.perf_counter()
+        crcs, rec_poses = ws_render_workspace(root, cams)
+        seconds["render and write"] = time.perf_counter() - t0
+        on_disk = sum(p.stat().st_size for p in crcs)
+        log(f"workspace: {len(crcs)} videos, {sum(len(c) for c in crcs.values())} frames of {WS_WH[0]}x{WS_WH[1]}, "
+            f"{on_disk / 1e6:.1f} MB, rendered and written in {seconds['render and write']:.2f} s "
+            f"({WS_RENDER_WORKERS} processes)")
+
+        # decode: every frame read back equals the frame written; rates from the page cache
+        decode = {cid: [0, 0, 0.0] for cid in cams}
+        for path, want in sorted(crcs.items()):
+            cid = int(path.stem.split("_")[1])
+            props = read_video_properties(path)
+            if (props.size, props.fps, props.frame_count) != (WS_WH, WS_FPS, len(want)):
+                raise AssertionError(f"workspace: {path} reads as {props}, written {WS_WH} {WS_FPS} fps {len(want)} frames")
+            t0 = time.perf_counter()
+            with FrameSource(path, cid, pixel_format=PixelFormat.GRAY) as src:
+                got = [zlib.crc32(pkt.frame.tobytes()) for pkt in src]
+            decode[cid][2] += time.perf_counter() - t0
+            if got != want:
+                raise AssertionError(f"workspace: {path} decodes to other frames than were written")
+            decode[cid][0] += len(got)
+            decode[cid][1] += len(got) * WS_WH[0] * WS_WH[1]
+        for cid, (n, nbytes, s) in decode.items():
+            log(f"  decode cam {cid}: {n} frames, {nbytes / 1e6 / s:.0f} MB/s, {n / s:.0f} frames/s (page cache)")
+
+        step("export-board", str(root / "board.png"), "--px-per-square", "100")
+        png = (root / "board.png").read_bytes()
+        if not png.startswith(b"\x89PNG\r\n\x1a\n"):
+            raise AssertionError("workspace: export-board wrote no PNG")
+        step("status")
+
+        # ---- the main path, its launches counted ----------------------------------
+        trackers, intrinsic_outputs, runs = [], [], []
+        _zero_detect_counts()
+        fused_schur.schur_s_rhs.launches = 0
+        torch.cuda.reset_peak_memory_stats(device)
+        with _recording_attr(Workspace, "make_intrinsic_tracker", trackers), \
+                _recording_attr(Workspace, "make_extrinsic_tracker", trackers), \
+                _recording_attr(reporting, "print_intrinsic_report", intrinsic_outputs), \
+                _recording_attr(reporting, "print_extrinsic_report", runs):
+            step("calibrate-intrinsics", "--frame-step", "1")
+            _, wall, busy, n_kernels = _cuda_activity(device, lambda: step("extract"))
+            step("calibrate-extrinsics")
+            step("reconstruct", "rec0")
+            step("status")
+        rec_videos = {cid: root / "recordings" / "rec0" / f"cam_{cid}.mp4" for cid in cams}
+        t0 = time.perf_counter()
+        by_threads = {}
+        for n in (1, 4):
+            tr = CharucoTracker(board, device=device)
+            trackers.append(tr)
+            by_threads[n] = extract_image_points_multicam(rec_videos, tr, progress=None, max_threads=n)
+        seconds["multicam 1 and 4 threads"] = time.perf_counter() - t0
+        tr = CharucoTracker(board, device=device)
+        trackers.append(tr)
+        streamed = []
+        t0 = time.perf_counter()
+        streamer = FramePacketStreamer(rec_videos[0], cam_id=0, tracker=tr, fps_override=1000.0,
+                                       queue_depth=WS_RECORDING_FRAMES + 1)
+        q = streamer.subscribe()
+        streamer.play()
+        try:
+            while time.perf_counter() - t0 < 120:
+                item = q.get(timeout=60)
+                if item is None:
+                    break
+                streamed.append(item)
+        finally:
+            streamer.stop()
+        seconds["streamer"] = time.perf_counter() - t0
+        sync(device)
+        (n_ccl, n_resp, n_win), resident = _detect_counts()
+        schur_launches = fused_schur.schur_s_rhs.launches
+        dispatches = sum(t.dispatches for t in trackers)
+        peak = torch.cuda.max_memory_allocated(device)
+
+        # ---- gates ---------------------------------------------------------------
+        status = ws.get_workflow_status()
+        steps = (status.intrinsic_step_status, status.extrinsic_2d_step_status, status.extrinsic_calibration_step_status)
+        if steps != (StepStatus.COMPLETE,) * 3:
+            raise AssertionError(f"workspace: workflow steps {steps}, not all COMPLETE")
+        if len(intrinsic_outputs) != len(cams):
+            raise AssertionError(f"workspace: {len(intrinsic_outputs)} intrinsic calibrations for {len(cams)} cameras")
+        for out in intrinsic_outputs:
+            f_true = cams[out.camera.cam_id][0][0, 0]
+            rel = abs(out.camera.matrix[0, 0] - f_true) / f_true
+            log(f"  intrinsics cam {out.camera.cam_id}: RMSE {out.report.rmse:.4f} px, fx {out.camera.matrix[0, 0]:.2f} "
+                f"(truth {f_true:.1f}, {100 * rel:.3f} %), {out.report.frames_used} frames")
+            if not (out.report.rmse < WS_MAX_RMSE_PX and rel < WS_MAX_FOCAL_REL):
+                raise AssertionError(f"workspace: camera {out.camera.cam_id}'s intrinsics miss the recipe's bounds")
+        points = ImagePoints.from_csv(ws.xy_csv_path("CHARUCO"))
+        n_frames_extracted = len(cams) * WS_STATIONS * WS_PER_STATION
+        log(f"  extract: {len(points)} observations, {n_frames_extracted / seconds['extract']:.1f} frames/s over "
+            f"{len(cams)} cameras, device idle {100 * (1 - busy / wall):.1f} % ({n_kernels} GPU kernels, "
+            f"{busy:.3f} s busy of {wall:.3f} s)")
+        if len(points) <= WS_MIN_OBSERVATIONS or set(np.unique(points.cam_id).tolist()) != set(cams):
+            raise AssertionError(f"workspace: {len(points)} observations from cameras {np.unique(points.cam_id)}")
+        volume = runs[-1].capture_volume
+        rmse = volume.reprojection_report.overall_rmse
+        est = {cid: -c.rotation.T @ c.translation for cid, c in volume.camera_array.posed_cameras.items()}
+        ids = sorted(est)
+        truth_c = np.array([-cams[c][1].T @ cams[c][2] for c in ids])
+        s, R, t = (np.asarray(v, dtype=np.float64) for v in umeyama(np.array([est[c] for c in ids]), truth_c))
+        center_err = np.linalg.norm(float(s) * np.array([est[c] for c in ids]) @ R.T + t - truth_c, axis=1)
+        reloaded = ws.capture_volume.load(device=device).reprojection_report.overall_rmse
+        log(f"  extrinsics: RMSE {rmse:.4f} px (reloaded {reloaded:.6f}), centers within {1000 * center_err.max():.2f} mm "
+            f"after a similarity, scale {float(s):.5f}; Schur kernel launches {schur_launches} (constrained: gate closed)")
+        if not (ids == sorted(cams) and rmse < WS_MAX_RMSE_PX and center_err.max() < WS_MAX_CENTER_M
+                and abs(float(s) - 1.0) < WS_MAX_SCALE_REL and abs(reloaded - rmse) < 1e-6):
+            raise AssertionError("workspace: the calibrated rig misses the recipe's bounds")
+        if schur_launches != 0:
+            raise AssertionError(f"workspace: the Schur kernel launched {schur_launches} times on constrained problems")
+        out_dir = root / "recordings" / "rec0" / "CHARUCO"
+        if not ((out_dir / "xyz_CHARUCO.csv").exists() and (out_dir / "xyz_CHARUCO.trc").exists()):
+            raise AssertionError(f"workspace: reconstruct wrote no xyz CSV / TRC under {out_dir}")
+        wp = WorldPoints.from_csv(out_dir / "xyz_CHARUCO.csv")
+        aligned = float(s) * wp.xyz @ R.T + t
+        truth_x = np.array([ws_board_corners_world(rec_poses[si])[k] for si, k in zip(wp.sync_index, wp.keypoint_id)])
+        recon_err = np.linalg.norm(aligned - truth_x, axis=1)
+        log(f"  reconstruct: {len(wp)} points over {len(np.unique(wp.sync_index))} frames, median error "
+            f"{1000 * np.median(recon_err):.3f} mm (max {1000 * recon_err.max():.3f})")
+        if not np.median(recon_err) < WS_MAX_RECON_MEDIAN_M:
+            raise AssertionError("workspace: the recording's board corners miss the truth")
+        one, four = by_threads[1], by_threads[4]
+        for col in ("sync_index", "cam_id", "object_id", "keypoint_id", "img_xy", "obj_loc", "frame_time"):
+            if not np.array_equal(getattr(one, col), getattr(four, col), equal_nan=col in ("obj_loc", "frame_time")):
+                raise AssertionError(f"workspace: multicam extraction with 1 and 4 threads differs in {col}")
+        if ([tf.packet.frame_index for tf in streamed] != list(range(WS_RECORDING_FRAMES))
+                or not all(isinstance(tf, TrackedFrame) for tf in streamed)):
+            raise AssertionError(f"workspace: the streamer gave {len(streamed)} tracked frames, not one a frame")
+        log(f"  streamer: {len(streamed)} tracked frames of cam 0 in {seconds['streamer']:.2f} s, "
+            f"{sum(len(tf.points) > 0 for tf in streamed)} with the board")
+        log(f"  kernel launches: labeling {n_ccl} (resident {resident}), response {n_resp}, windows {n_win} for "
+            f"{dispatches} device-program dispatches; by CLI step {json.dumps(launches_by_step)}")
+        if not (n_ccl == n_resp == resident == dispatches and n_win == 2 * dispatches and dispatches > 0):
+            raise AssertionError("workspace: kernel launches do not match the dispatches")
+        log(f"  peak device memory {peak / 2**20:.1f} MiB")
+
+        # ---- the card against the port's CPU run (not counted) ----------------------
+        clip = Path(tmp) / "clip" / "cam_0.mp4"
+        seen = sorted(set(points.sync_index[points.cam_id == 0].tolist()))[:WS_CLIP_FRAMES]  # sync = frame here
+        with FrameSource(ws.video_path("extrinsic", 0), 0, wanted_indices=set(seen), pixel_format=PixelFormat.GRAY) as src:
+            write_gray_video(clip, [pkt.frame for pkt in src], WS_FPS)
+        card = extract_image_points(clip, 0, CharucoTracker(board, device=device), progress=None)
+        t0 = time.perf_counter()
+        cpu = extract_image_points(clip, 0, CharucoTracker(board, device="cpu"), progress=None)
+        cpu_s = time.perf_counter() - t0
+        same = all(np.array_equal(getattr(card, c), getattr(cpu, c)) for c in ("sync_index", "object_id", "keypoint_id"))
+        gap = float(np.abs(card.img_xy - cpu.img_xy).max()) if same and len(card) else float("inf")
+        log(f"  card vs CPU on cam 0's first {len(seen)} extrinsic frames with the board: {len(card)} observations, "
+            f"max {gap:.2e} px (CPU {cpu_s:.1f} s)")
+        if not (same and gap < GPU_VS_CPU_ATOL_PX):
+            raise AssertionError("workspace: the card's extraction parts from the CPU's")
+
+        try:
+            cli.main(["gui"])
+        except NotImplementedError as e:
+            if "item 26" not in str(e):
+                raise
+        else:
+            raise AssertionError("workspace: `gui` did not raise not_ported")
+        log("  seconds per step " + json.dumps({k: round(v, 3) for k, v in seconds.items()}))
+    return (n_ccl, n_resp, n_win), schur_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3136,9 +3623,14 @@ def main() -> int:
     log(f"vertical and sharded phase: {time.perf_counter() - t0:.2f} s")
     entry["launches"] += sharded_launches
     entry["launches_by_path"]["sharded"] = sharded_launches
+    t0 = time.perf_counter()
+    ws_launches, ws_schur = workspace_phase(device, smi_line)
+    log(f"workspace phase: {time.perf_counter() - t0:.2f} s")
+    entry["launches"] += ws_schur
+    entry["launches_by_path"]["workspace"] = ws_schur
     for i, e in enumerate(detect_entries):
         e["launches_by_path"] = ({"detection_slice": e["launches"]} | {path: n[i] for path, n in intr_launches.items()}
-                                 | {"markerless": 0, "sharded": 0})
+                                 | {"markerless": 0, "sharded": 0, "workspace": ws_launches[i]})
         e["launches"] = sum(e["launches_by_path"].values())
         e["tracker_shapes"] = tracker_shapes[e["name"]]
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, the kernels' build included")

@@ -232,3 +232,38 @@ def test_packed_device_program_layout(boards, stack):
         TT._charuco_device_program(torch.from_numpy(p4), 4, 64, 96, 49, 4, 256, packed4=True).numpy(),
         TT._charuco_device_program(torch.from_numpy(q4), 4, 64, 96, 49, 4, 256).numpy(),
     )
+
+
+def test_corners_outside_the_frame_are_not_reported(boards):
+    """Boards cut by the frame's edge (shifted 55-110 px out): the JAX
+    package snaps corners that its homography places outside the frame to
+    responses at the edge, up to ~10 px off (ROADMAP.md section 3); the
+    port reports no corner outside the frame, and its corners lie nearer
+    the truth. Near the edge both still report some in-frame corners a few
+    px off, so this holds the port's corners to the JAX package's overall
+    error, not to the sub-pixel contract of boards inside the frame."""
+    jch, ch = boards
+    rng = np.random.default_rng(1)
+    frames, truths = [], []
+    for k in range(3):
+        quad = np.array(QUAD_FRONT) + rng.uniform(-10, 10, (4, 2))
+        shift = rng.uniform(55, 110)
+        axis, sign = (1, -1) if k % 4 == 0 else (1, 1) if k % 4 == 1 else (0, -1) if k % 4 == 2 else (0, 1)
+        quad[:, axis] += sign * shift
+        f, gt = board_frame(ch, quad, noise_seed=k)
+        frames.append(f)
+        truths.append(gt)
+
+    def outside(gt, ids):
+        return (gt[ids, 0] < -0.5) | (gt[ids, 0] > 319.5) | (gt[ids, 1] < -0.5) | (gt[ids, 1] > 239.5)
+
+    got = CharucoTracker(ch, device="cpu").get_points_batch(np.stack(frames))
+    want = JaxTracker(jch).get_points_batch(np.stack(frames))
+    assert sum(int(outside(gt, p.keypoint_id).sum()) for p, gt in zip(want, truths)) > 0
+    assert all(not outside(gt, p.keypoint_id).any() for p, gt in zip(got, truths))
+
+    def rms(packets):
+        e = np.concatenate([_errors(p, gt) for p, gt in zip(packets, truths) if len(p)])
+        return float(np.sqrt(np.mean(e**2)))
+
+    assert rms(got) < rms(want)

@@ -3,8 +3,8 @@
 `import caliscope_tpu_torch` and every module of the package (the list is
 derived from its files) must load
 neither JAX nor anything of the JAX package (caliscope_tpu), nor triton,
-nor a library the GPU machine does not have (cv2, pandas, onnx,
-onnxruntime), and must not create a CUDA context; chip_smoke.py must import
+nor a library the GPU machine does not have or is not known to have (cv2,
+pandas, onnx, onnxruntime, PIL), and must not create a CUDA context; chip_smoke.py must import
 none of JAX, the JAX package or bench.py. Each canary runs in a process of
 its own (forked, one per module, from a subprocess that has imported torch
 alone), so this file's own imports (the tests import both packages) cannot
@@ -48,7 +48,7 @@ SLICE_MODULES = [m for m in _package_modules() if m not in NOT_IN_CANARY]
 CANARY = """
 import json, os, sys, traceback
 import torch
-BAD = ('jax', 'jaxlib', 'triton', 'caliscope_tpu', 'cv2', 'pandas', 'onnx', 'onnxruntime')
+BAD = ('jax', 'jaxlib', 'triton', 'caliscope_tpu', 'cv2', 'pandas', 'onnx', 'onnxruntime', 'PIL')
 
 def check(module):
     __import__(module)
@@ -109,7 +109,16 @@ def test_module_list_covers_the_package():
                  "caliscope_tpu_torch.pose.registry", "caliscope_tpu_torch.pose.model_download",
                  "caliscope_tpu_torch.estimators", "caliscope_tpu_torch.estimators.vertical",
                  "caliscope_tpu_torch.estimators.vertical_solver", "caliscope_tpu_torch.estimators.geocalib_arch",
-                 "caliscope_tpu_torch.parallel", "caliscope_tpu_torch.parallel.sharded"):
+                 "caliscope_tpu_torch.parallel", "caliscope_tpu_torch.parallel.sharded",
+                 "caliscope_tpu_torch.logger", "caliscope_tpu_torch.reporting", "caliscope_tpu_torch.media",
+                 "caliscope_tpu_torch.media.video", "caliscope_tpu_torch.media.quicktime",
+                 "caliscope_tpu_torch.media.frame_timestamps", "caliscope_tpu_torch.media.synchronized_timestamps",
+                 "caliscope_tpu_torch.media.streamer", "caliscope_tpu_torch.tasks", "caliscope_tpu_torch.repositories",
+                 "caliscope_tpu_torch.api", "caliscope_tpu_torch.pipelines.process_recording",
+                 "caliscope_tpu_torch.workspace", "caliscope_tpu_torch.presenters",
+                 "caliscope_tpu_torch.presenters.signal", "caliscope_tpu_torch.presenters.processing",
+                 "caliscope_tpu_torch.presenters.intrinsic", "caliscope_tpu_torch.presenters.extrinsic",
+                 "caliscope_tpu_torch.__main__", "caliscope_tpu_torch.synthetic.explorer"):
         assert name in SLICE_MODULES
     assert set(SLICE_MODULES) | set(NOT_IN_CANARY) == set(modules)
     assert all(reason for reason in NOT_IN_CANARY.values())
@@ -140,8 +149,9 @@ def test_port_sources_name_no_jax():
 
 
 def test_port_sources_import_no_library_the_gpu_machine_lacks():
-    """No source of the port or chip_smoke.py imports cv2, pandas, onnx or
-    onnxruntime, even lazily inside a function: the GPU machine has none."""
+    """No source of the port or chip_smoke.py imports cv2, pandas, onnx,
+    onnxruntime or PIL, even lazily inside a function: the GPU machine has
+    none of the first four and is not known to have PIL."""
     files = sorted((ROOT / "caliscope_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = []
     for path in files:
@@ -152,7 +162,7 @@ def test_port_sources_import_no_library_the_gpu_machine_lacks():
             elif isinstance(node, ast.ImportFrom) and node.module:
                 names = [node.module]
             offenders += [f"{path.relative_to(ROOT)}: {n}" for n in names
-                          if n.split(".")[0] in ("cv2", "pandas", "onnx", "onnxruntime")]
+                          if n.split(".")[0] in ("cv2", "pandas", "onnx", "onnxruntime", "PIL")]
     assert not offenders, offenders
 
 

@@ -15,8 +15,10 @@ against the JAX package's on the same numpy inputs, float64 on the CPU:
 - the chain on the video of tests/test_pose_and_vertical.py:160-197: the
   JAX package's estimate_vertical against the port's
   estimate_vertical_from_frames on the same frames, decoded here with this
-  machine's OpenCV (the port has no video decoder; its estimate_vertical
-  raises, naming ROADMAP.md item 25).
+  machine's OpenCV; the port's estimate_vertical refuses that mp4v file
+  (CalibrationError naming the codec: it decodes uncompressed video only)
+  and, on the same frames written uncompressed, gives the JAX package's
+  estimate on that file.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ from caliscope_tpu.pose.onnx_jax import OnnxJaxSession
 from caliscope_tpu.pose.torch_onnx import GraphBuilder
 
 from caliscope_tpu_torch.estimators import vertical as TV
+from caliscope_tpu_torch.exceptions import CalibrationError
+from caliscope_tpu_torch.media.video import OverlayVideoWriter
 from caliscope_tpu_torch.estimators import vertical_solver as TS
 from caliscope_tpu_torch.pose import onnx_proto as TPR
 from caliscope_tpu_torch.pose.onnx_torch import OnnxTorchSession
@@ -162,8 +166,16 @@ def test_chain_on_the_jax_suites_video(tmp_path):
     assert got.n_frames_by_camera == want.n_frames_by_camera == {0: 3}
     up = got.up_by_camera[0]
     assert up[1] > 0.7 and abs(up[0]) < 0.3 and abs(up[2]) < 0.3, up
-    with pytest.raises(NotImplementedError, match="item 25"):
-        TV.estimate_vertical({0: video}, {0: Kv}, models_dir)
+    with pytest.raises(CalibrationError, match="'mp4v' is compressed"):
+        TV.estimate_vertical({0: video}, {0: Kv}, models_dir, device="cpu")
+    raw = tmp_path / "raw" / "cam_0.mp4"
+    with OverlayVideoWriter(raw, (128, 96), 30.0) as w:
+        for frame in frames:
+            w.write(frame)
+    want_raw = JV.estimate_vertical({0: raw}, {0: Kv}, models_dir, n_sample_frames=3)
+    got_raw = TV.estimate_vertical({0: raw}, {0: Kv}, models_dir, n_sample_frames=3, device="cpu")
+    np.testing.assert_allclose(got_raw.up_by_camera[0], want_raw.up_by_camera[0], atol=GRAVITY_ATOL, rtol=0)
+    assert got_raw.n_frames_by_camera == want_raw.n_frames_by_camera == {0: 3}
 
 
 @pytest.mark.cuda
