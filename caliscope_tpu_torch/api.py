@@ -106,6 +106,7 @@ def _auto_progress(progress):
 
 
 EXTRACT_BATCH = int(os.environ.get("CALISCOPE_EXTRACT_BATCH", 16))
+_MAX_THREADS = 8  # reading and tracking threads of a multicam extraction, one a camera
 
 
 def _iter_tracked_batched(src, tracker, cam_id: int, rotation_count: int, batch: int = EXTRACT_BATCH):
@@ -215,10 +216,9 @@ def extract_image_points_multicam(
     timestamps: Path | str | None = None,
     rotation_counts: Mapping[int, int] | None = None,
     progress=_AUTO,
-    max_threads: int = 8,
 ) -> ImagePoints:
     """Synchronized multicam extraction: shared sync mapping, one reading
-    and tracking thread per camera, up to `max_threads`. frame_step strides
+    and tracking thread per camera, up to 8. frame_step strides
     SYNC indices (not raw frames). The tracker must be thread-safe (the
     port's trackers are)."""
     from caliscope_tpu_torch.media import FrameSource, SynchronizedTimestamps
@@ -270,7 +270,7 @@ def extract_image_points_multicam(
             return rows
 
         all_rows: list[dict] = []
-        with ThreadPoolExecutor(max_workers=max(1, min(len(video_paths), max_threads))) as pool:
+        with ThreadPoolExecutor(max_workers=max(1, min(len(video_paths), _MAX_THREADS))) as pool:
             futures = [pool.submit(process, cid, work_list(cid), video_paths[cid]) for cid in video_paths]
             try:
                 for fut in futures:

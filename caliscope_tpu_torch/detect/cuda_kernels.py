@@ -31,10 +31,7 @@ import numpy as np
 import torch
 
 from caliscope_tpu_torch import _cuda_build
-
-N_TAPS = 16
-RADIUS = 4.0  # of the sampling ring, px
-PAD = 6  # width of the zeroed border: ceil(RADIUS) + 2
+from caliscope_tpu_torch.detect.ring import N_TAPS, PAD, RADIUS
 
 _libs: dict = {}
 

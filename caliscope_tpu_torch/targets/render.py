@@ -51,16 +51,16 @@ def warp_perspective(img: np.ndarray, H: np.ndarray, out_wh: tuple[int, int], bo
         x1b, y1b = min(int(np.ceil(uv[:, 0].max())) + 2, w), min(int(np.ceil(uv[:, 1].max())) + 2, h)
         out = np.full((h, w), np.uint8(np.clip(np.rint(border_value), 0, 255)))
         if x0b < x1b and y0b < y1b:
-            shift = np.array([[1.0, 0.0, x0b], [0.0, 1.0, y0b], [0.0, 0.0, 1.0]])
-            out[y0b:y1b, x0b:x1b] = _warp_all(img, np.linalg.inv(shift) @ H, (x1b - x0b, y1b - y0b), border_value)
+            out[y0b:y1b, x0b:x1b] = _warp_box(img, H, (x0b, x1b), (y0b, y1b), border_value)
         return out
-    return _warp_all(img, H, out_wh, border_value)
+    return _warp_box(img, H, (0, w), (0, h), border_value)
 
 
-def _warp_all(img: np.ndarray, H: np.ndarray, out_wh: tuple[int, int], border_value: float) -> np.ndarray:
-    w, h = out_wh
+def _warp_box(img: np.ndarray, H: np.ndarray, x_range, y_range, border_value: float) -> np.ndarray:
+    """The output pixels x_range[0] <= x < x_range[1], y_range[0] <= y <
+    y_range[1] of the warp, each computed as the whole frame's would be."""
     Hs, Ws = img.shape
-    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    ys, xs = np.mgrid[y_range[0] : y_range[1], x_range[0] : x_range[1]].astype(np.float64)
     Hi = np.linalg.inv(H)
     den = Hi[2, 0] * xs + Hi[2, 1] * ys + Hi[2, 2]
     sx = (Hi[0, 0] * xs + Hi[0, 1] * ys + Hi[0, 2]) / den

@@ -45,8 +45,8 @@ import torch
 
 from caliscope_tpu_torch.detect.aruco import assemble_marker_detections, detect_markers, marker_graph
 from caliscope_tpu_torch.detect.corners import detect_x_corners_device, xcorner_graph
-from caliscope_tpu_torch.detect.cuda_kernels import PAD
 from caliscope_tpu_torch.detect.dictionaries import get_dictionary
+from caliscope_tpu_torch.detect.ring import PAD
 from caliscope_tpu_torch.device import resolve_device
 from caliscope_tpu_torch.packets import PixelFormat, PointPacket
 from caliscope_tpu_torch.targets.charuco import Charuco
@@ -455,23 +455,11 @@ class CharucoTracker(Tracker):
                 spacing[:-1] = np.minimum(spacing[:-1], dv)
             return self.snap_radius_frac * spacing.reshape(n)
 
-        h_img, w_img = gray.shape[:2]
-
         def snap(expected, radii):
             d2 = np.sum((expected[:, None, :] - cand[None, :, :]) ** 2, axis=2)
             nearest = np.argmin(d2, axis=1)
             dist = np.sqrt(d2[np.arange(len(expected)), nearest])
-            # A corner the homography places outside the frame, or in the
-            # border where the ring response is zero (PAD px), gives no
-            # candidate of its own; the JAX package snaps it to whatever
-            # candidate lies within the radius (an X-response where the board
-            # meets the frame's edge), up to ~30 px off. The port keeps only
-            # corners expected inside the response's border.
-            inside = (
-                (expected[:, 0] >= PAD) & (expected[:, 0] <= w_img - 1 - PAD)
-                & (expected[:, 1] >= PAD) & (expected[:, 1] <= h_img - 1 - PAD)
-            )
-            keep = (dist < radii) & inside
+            keep = dist < radii
             chosen: dict[int, int] = {}
             for k in np.where(keep)[0]:
                 c = int(nearest[k])
@@ -525,6 +513,18 @@ class CharucoTracker(Tracker):
         # marker that aliases a board id finds none)
         min_corners = 4 if len(src_m) == 1 else 1
         if len(kps) < min_corners:
+            return None
+        # A corner the homography places outside the frame, or in the border
+        # where the ring response is zero (PAD px), has no candidate of its
+        # own; the snap above pairs it with whatever candidate lies within
+        # its radius (an X-response where the board meets the frame's edge),
+        # up to ~30 px off. The JAX package reports such corners; the port
+        # drops them here, after every gate, so the corners it keeps are the
+        # JAX package's.
+        h_img, w_img = gray.shape[:2]
+        e = expected[kps]
+        kps = kps[(e[:, 0] >= PAD) & (e[:, 0] <= w_img - 1 - PAD) & (e[:, 1] >= PAD) & (e[:, 1] <= h_img - 1 - PAD)]
+        if len(kps) == 0:
             return None
         return kps, cand[nearest[kps]], len(src_m)
 

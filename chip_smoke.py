@@ -135,6 +135,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from contextlib import contextmanager
@@ -1863,6 +1864,9 @@ def _detect_counts():
     return (CCL.connected_components.launches, CK.corner_response.launches, CK.extract_windows.launches), CCL.connected_components.resident_launches
 
 
+_record_lock = threading.Lock()  # the recorders below may be called from one thread a camera
+
+
 @contextmanager
 def recorded_gathers(store):
     """Route the detection modules' calls of kernel 4 (detect/kernels.py's
@@ -1876,10 +1880,11 @@ def recorded_gathers(store):
 
     def record(frames, yi, xi, win):
         if frames.is_cuda:
-            store["calls"] = store.get("calls", 0) + 1
             key = (tuple(frames.shape), int(yi.shape[1]), int(win))
-            if key not in store:
-                store[key] = (frames.clone(), yi.clone(), xi.clone(), win)
+            with _record_lock:
+                store["calls"] = store.get("calls", 0) + 1
+                if key not in store:
+                    store[key] = (frames.clone(), yi.clone(), xi.clone(), win)
         return CK.extract_windows(frames, yi, xi, win)
 
     saved = DC.extract_windows, DK.extract_windows
@@ -1908,6 +1913,76 @@ def check_recorded_gathers(store, launches, what):
             raise AssertionError(f"{what}: extract_windows at {key} differs from the plain version")
         shapes.append(f"({key[0][0]}, {key[1]}, {key[2]}) on {key[0]}")
     log(f"{what}: extract_windows equal to the plain version (torch.equal) at every shape the run gave it: " + ", ".join(shapes))
+    return shapes
+
+
+@contextmanager
+def recorded_detect_kernels(store):
+    """recorded_gathers into store["windows"], and the detection modules'
+    calls of kernels 2 and 3 (detect/aruco.py's labeling, detect/corners.py's
+    response) likewise into store["ccl"] and store["response"]: each counts
+    its CUDA calls under "calls" and keeps the inputs of the first CUDA call
+    of each (shape, n_iters) or shape."""
+    from caliscope_tpu_torch.detect import aruco as DA
+    from caliscope_tpu_torch.detect import ccl as CCL
+    from caliscope_tpu_torch.detect import corners as DC
+    from caliscope_tpu_torch.detect import cuda_kernels as CK
+
+    ccl_store, resp_store = store.setdefault("ccl", {}), store.setdefault("response", {})
+
+    def keep(sub, key, args):
+        with _record_lock:
+            sub["calls"] = sub.get("calls", 0) + 1
+            if key not in sub:
+                sub[key] = tuple(a.clone() if hasattr(a, "clone") else a for a in args)
+
+    def ccl(mask, n_iters=4):
+        if mask.is_cuda:
+            keep(ccl_store, (tuple(mask.shape), int(n_iters)), (mask, n_iters))
+        return CCL.connected_components(mask, n_iters)
+
+    def response(images):
+        if images.is_cuda:
+            keep(resp_store, tuple(images.shape), (images,))
+        return CK.corner_response(images)
+
+    saved = DA.connected_components, DC.corner_response
+    DA.connected_components, DC.corner_response = ccl, response
+    try:
+        with recorded_gathers(store.setdefault("windows", {})):
+            yield store
+    finally:
+        DA.connected_components, DC.corner_response = saved
+
+
+def check_recorded_detect_kernels(store, launches, what):
+    """check_recorded_gathers for kernel 4, and for kernels 2 and 3: every
+    launch of the run went through the recorder, and the kernel equals its
+    plain version (torch.equal) at each shape recorded. launches = (ccl,
+    response, windows) of the run. Returns {kernel: shapes}."""
+    import torch
+
+    from caliscope_tpu_torch.detect import ccl as CCL
+    from caliscope_tpu_torch.detect import cuda_kernels as CK
+
+    before = _detect_counts()
+    shapes = {}
+    for name, n, sub, kernel, plain in (
+        ("ccl", launches[0], store["ccl"], CCL.connected_components, CCL.connected_components_plain),
+        ("corner_response", launches[1], store["response"], CK.corner_response, CK.corner_response_plain),
+    ):
+        if sub.get("calls", 0) != n:
+            raise AssertionError(f"{what}: {n} {name} launches, {sub.get('calls', 0)} recorded")
+        shapes[name] = []
+        for key, args in sub.items():
+            if key == "calls":
+                continue
+            if not torch.equal(kernel(*args), plain(*args)):
+                raise AssertionError(f"{what}: {name} at {key} differs from the plain version")
+            shapes[name].append(str(key))
+        log(f"{what}: {name} equal to the plain version (torch.equal) at every shape the run gave it: " + ", ".join(shapes[name]))
+    shapes["extract_windows"] = check_recorded_gathers(store["windows"], launches[2], what)
+    (CCL.connected_components.launches, CK.corner_response.launches, CK.extract_windows.launches), CCL.connected_components.resident_launches = before
     return shapes
 
 
@@ -3308,6 +3383,18 @@ def _recording_attr(owner, name, record):
         setattr(owner, name, original)
 
 
+@contextmanager
+def _max_threads(n):
+    """extract_image_points_multicam with its thread pool cut to n threads."""
+    from caliscope_tpu_torch import api
+
+    saved, api._MAX_THREADS = api._MAX_THREADS, n
+    try:
+        yield
+    finally:
+        api._MAX_THREADS = saved
+
+
 def _cuda_activity(device, fn):
     """fn() under torch.profiler with CUDA activity only: (its result, wall
     s, device s as the sum of its GPU kernels' durations, GPU kernels)."""
@@ -3327,7 +3414,9 @@ def workspace_phase(device, smi_line):
     """Build a workspace of rendered 1280x720 recordings and drive it through
     the CLI in process, from the videos to a calibrated rig and a
     reconstruction, on the card. Returns ((ccl, response, windows) launches
-    on the phase's main path, Schur kernel launches on it)."""
+    of the CLI steps, the phase's main path; Schur kernel launches there;
+    {check: (ccl, response, windows) launches} of the multicam 1-vs-4-thread
+    check and the streamer, which are not the main path's)."""
     import tempfile
     import zlib
 
@@ -3409,42 +3498,73 @@ def workspace_phase(device, smi_line):
         with _recording_attr(Workspace, "make_intrinsic_tracker", trackers), \
                 _recording_attr(Workspace, "make_extrinsic_tracker", trackers), \
                 _recording_attr(reporting, "print_intrinsic_report", intrinsic_outputs), \
-                _recording_attr(reporting, "print_extrinsic_report", runs):
+                _recording_attr(reporting, "print_extrinsic_report", runs), \
+                recorded_detect_kernels({}) as main_inputs:
             step("calibrate-intrinsics", "--frame-step", "1")
             _, wall, busy, n_kernels = _cuda_activity(device, lambda: step("extract"))
             step("calibrate-extrinsics")
             step("reconstruct", "rec0")
             step("status")
-        rec_videos = {cid: root / "recordings" / "rec0" / f"cam_{cid}.mp4" for cid in cams}
-        t0 = time.perf_counter()
-        by_threads = {}
-        for n in (1, 4):
-            tr = CharucoTracker(board, device=device)
-            trackers.append(tr)
-            by_threads[n] = extract_image_points_multicam(rec_videos, tr, progress=None, max_threads=n)
-        seconds["multicam 1 and 4 threads"] = time.perf_counter() - t0
-        tr = CharucoTracker(board, device=device)
-        trackers.append(tr)
-        streamed = []
-        t0 = time.perf_counter()
-        streamer = FramePacketStreamer(rec_videos[0], cam_id=0, tracker=tr, fps_override=1000.0,
-                                       queue_depth=WS_RECORDING_FRAMES + 1)
-        q = streamer.subscribe()
-        streamer.play()
-        try:
-            while time.perf_counter() - t0 < 120:
-                item = q.get(timeout=60)
-                if item is None:
-                    break
-                streamed.append(item)
-        finally:
-            streamer.stop()
-        seconds["streamer"] = time.perf_counter() - t0
         sync(device)
         (n_ccl, n_resp, n_win), resident = _detect_counts()
         schur_launches = fused_schur.schur_s_rhs.launches
         dispatches = sum(t.dispatches for t in trackers)
         peak = torch.cuda.max_memory_allocated(device)
+        recorded_mib = sum(a.numel() * a.element_size() for sub in (main_inputs["ccl"], main_inputs["response"], main_inputs["windows"])
+                           for k, args in sub.items() if k != "calls" for a in args if hasattr(a, "numel")) / 2**20
+
+        # ---- multicam extraction with 1 and 4 threads, and the streamer: gates of
+        # their own, their launches counted apart from the main path's ------------
+        rec_videos = {cid: root / "recordings" / "rec0" / f"cam_{cid}.mp4" for cid in cams}
+        check_launches = {}
+
+        def counted(name, run):
+            """run(trackers) with kernels 2-4 recorded; its launches gated against
+            its trackers' dispatches and its inputs held to the plain versions."""
+            made = []
+            _zero_detect_counts()
+            t0 = time.perf_counter()
+            with recorded_detect_kernels({}) as inputs:
+                out = run(made)
+            sync(device)
+            seconds[name] = time.perf_counter() - t0
+            launches, res = _detect_counts()
+            n = sum(t.dispatches for t in made)
+            if device.type == "cuda" and not (launches == (n, n, 2 * n) and res == n and n > 0):
+                raise AssertionError(f"workspace {name}: launches {launches} (resident {res}) for {n} dispatches")
+            if device.type == "cuda":
+                check_recorded_detect_kernels(inputs, launches, f"workspace {name}")
+            check_launches[name] = launches
+            return out
+
+        def multicam(made):
+            out = {}
+            for n in (1, 4):
+                made.append(CharucoTracker(board, device=device))
+                with _max_threads(n):
+                    out[n] = extract_image_points_multicam(rec_videos, made[-1], progress=None)
+            return out
+
+        def stream(made):
+            made.append(CharucoTracker(board, device=device))
+            got = []
+            streamer = FramePacketStreamer(rec_videos[0], cam_id=0, tracker=made[-1], fps_override=1000.0,
+                                           queue_depth=WS_RECORDING_FRAMES + 1)
+            q = streamer.subscribe()
+            t0 = time.perf_counter()
+            streamer.play()
+            try:
+                while time.perf_counter() - t0 < 120:
+                    item = q.get(timeout=60)
+                    if item is None:
+                        break
+                    got.append(item)
+            finally:
+                streamer.stop()
+            return got
+
+        by_threads = counted("multicam 1 and 4 threads", multicam)
+        streamed = counted("streamer", stream)
 
         # ---- gates ---------------------------------------------------------------
         status = ws.get_workflow_status()
@@ -3502,11 +3622,15 @@ def workspace_phase(device, smi_line):
             raise AssertionError(f"workspace: the streamer gave {len(streamed)} tracked frames, not one a frame")
         log(f"  streamer: {len(streamed)} tracked frames of cam 0 in {seconds['streamer']:.2f} s, "
             f"{sum(len(tf.points) > 0 for tf in streamed)} with the board")
-        log(f"  kernel launches: labeling {n_ccl} (resident {resident}), response {n_resp}, windows {n_win} for "
-            f"{dispatches} device-program dispatches; by CLI step {json.dumps(launches_by_step)}")
+        log(f"  kernel launches of the CLI steps: labeling {n_ccl} (resident {resident}), response {n_resp}, windows "
+            f"{n_win} for {dispatches} device-program dispatches; by step {json.dumps(launches_by_step)}")
         if not (n_ccl == n_resp == resident == dispatches and n_win == 2 * dispatches and dispatches > 0):
             raise AssertionError("workspace: kernel launches do not match the dispatches")
-        log(f"  peak device memory {peak / 2**20:.1f} MiB")
+        if device.type == "cuda":
+            check_recorded_detect_kernels(main_inputs, (n_ccl, n_resp, n_win), "workspace CLI steps")
+        log(f"  launches outside the CLI steps (not the main path's): {json.dumps(check_launches)}")
+        log(f"  peak device memory {peak / 2**20:.1f} MiB over the CLI steps, of which {recorded_mib:.1f} MiB the "
+            f"recorder's copies of the kernels' inputs")
 
         # ---- the card against the port's CPU run (not counted) ----------------------
         clip = Path(tmp) / "clip" / "cam_0.mp4"
@@ -3532,7 +3656,7 @@ def workspace_phase(device, smi_line):
         else:
             raise AssertionError("workspace: `gui` did not raise not_ported")
         log("  seconds per step " + json.dumps({k: round(v, 3) for k, v in seconds.items()}))
-    return (n_ccl, n_resp, n_win), schur_launches
+    return (n_ccl, n_resp, n_win), schur_launches, check_launches
 
 
 def main() -> int:
@@ -3624,7 +3748,7 @@ def main() -> int:
     entry["launches"] += sharded_launches
     entry["launches_by_path"]["sharded"] = sharded_launches
     t0 = time.perf_counter()
-    ws_launches, ws_schur = workspace_phase(device, smi_line)
+    ws_launches, ws_schur, ws_checks = workspace_phase(device, smi_line)
     log(f"workspace phase: {time.perf_counter() - t0:.2f} s")
     entry["launches"] += ws_schur
     entry["launches_by_path"]["workspace"] = ws_schur
@@ -3632,6 +3756,7 @@ def main() -> int:
         e["launches_by_path"] = ({"detection_slice": e["launches"]} | {path: n[i] for path, n in intr_launches.items()}
                                  | {"markerless": 0, "sharded": 0, "workspace": ws_launches[i]})
         e["launches"] = sum(e["launches_by_path"].values())
+        e["launches_outside_main_paths"] = {f"workspace {check}": n[i] for check, n in ws_checks.items()}
         e["tracker_shapes"] = tracker_shapes[e["name"]]
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, the kernels' build included")
     log(json.dumps({"kernels": [entry, *detect_entries]}))

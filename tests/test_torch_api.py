@@ -85,6 +85,13 @@ class _Recorder(TA.PlainProgress):
         self.events.append(("done", cam_id))
 
 
+def _one_thread(run):
+    """run() with the multicam extraction's thread pool cut to one thread."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TA, "_MAX_THREADS", 1)
+        return run()
+
+
 @pytest.fixture(scope="module")
 def runs(recording):
     """Each extraction once, module-wide: the port's CPU tracker takes
@@ -105,9 +112,9 @@ def runs(recording):
         "multicam_step4": (
             TA.extract_image_points_multicam(videos, CharucoTracker(ch, device="cpu"), frame_step=4, progress=None),
             JA.extract_image_points_multicam(videos, JaxTracker(jch), frame_step=4, progress=None),
-            TA.extract_image_points_multicam(
-                videos, CharucoTracker(ch, device="cpu"), frame_step=4, progress=None, max_threads=1
-            ),
+            _one_thread(lambda: TA.extract_image_points_multicam(
+                videos, CharucoTracker(ch, device="cpu"), frame_step=4, progress=None
+            )),
         ),
     }
 

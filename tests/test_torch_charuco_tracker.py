@@ -19,6 +19,7 @@ import torch
 
 from caliscope_tpu.targets.charuco import Charuco as JaxCharuco
 from caliscope_tpu.trackers.charuco_tracker import CharucoTracker as JaxTracker
+from caliscope_tpu_torch.detect.ring import PAD
 from caliscope_tpu_torch.packets import PixelFormat, PointPacket
 from caliscope_tpu_torch.trackers import CharucoTracker
 from caliscope_tpu_torch.trackers import charuco_tracker as TT
@@ -234,31 +235,41 @@ def test_packed_device_program_layout(boards, stack):
     )
 
 
-def test_corners_outside_the_frame_are_not_reported(boards):
-    """Boards cut by the frame's edge (shifted 55-110 px out): the JAX
-    package snaps corners that its homography places outside the frame to
-    responses at the edge, up to ~10 px off (ROADMAP.md section 3); the
-    port reports no corner outside the frame, and its corners lie nearer
-    the truth. Near the edge both still report some in-frame corners a few
-    px off, so this holds the port's corners to the JAX package's overall
-    error, not to the sub-pixel contract of boards inside the frame."""
-    jch, ch = boards
+@pytest.fixture(scope="module")
+def edge_cut(boards):
+    """Four boards cut by the frame's edge (shifted 55-110 px out, one a
+    side): (frames, truths, the port's packets)."""
+    _, ch = boards
     rng = np.random.default_rng(1)
     frames, truths = [], []
-    for k in range(3):
+    for k in range(4):
         quad = np.array(QUAD_FRONT) + rng.uniform(-10, 10, (4, 2))
         shift = rng.uniform(55, 110)
-        axis, sign = (1, -1) if k % 4 == 0 else (1, 1) if k % 4 == 1 else (0, -1) if k % 4 == 2 else (0, 1)
+        axis, sign = ((1, -1), (1, 1), (0, -1), (0, 1))[k % 4]
         quad[:, axis] += sign * shift
         f, gt = board_frame(ch, quad, noise_seed=k)
         frames.append(f)
         truths.append(gt)
+    frames = np.stack(frames)
+    return frames, truths, CharucoTracker(ch, device="cpu").get_points_batch(frames)
+
+
+def test_corners_outside_the_frame_are_not_reported(boards, edge_cut):
+    """On the edge-cut boards the JAX package's CPU path (whose response
+    twin does not zero the border) snaps corners that its homography places
+    outside the frame to responses at the edge, up to ~10 px off (ROADMAP.md
+    section 3); the port reports no corner outside the frame, and its
+    corners lie nearer the truth. Near the edge both still report some
+    in-frame corners a few px off, so this holds the port's corners to that
+    path's overall error, not to the sub-pixel contract of boards inside the
+    frame; the test below holds them to the JAX package's kernel."""
+    jch, _ = boards
+    frames, truths, got = edge_cut
 
     def outside(gt, ids):
         return (gt[ids, 0] < -0.5) | (gt[ids, 0] > 319.5) | (gt[ids, 1] < -0.5) | (gt[ids, 1] > 239.5)
 
-    got = CharucoTracker(ch, device="cpu").get_points_batch(np.stack(frames))
-    want = JaxTracker(jch).get_points_batch(np.stack(frames))
+    want = JaxTracker(jch).get_points_batch(frames)
     assert sum(int(outside(gt, p.keypoint_id).sum()) for p, gt in zip(want, truths)) > 0
     assert all(not outside(gt, p.keypoint_id).any() for p, gt in zip(got, truths))
 
@@ -267,3 +278,53 @@ def test_corners_outside_the_frame_are_not_reported(boards):
         return float(np.sqrt(np.mean(e**2)))
 
     assert rms(got) < rms(want)
+
+
+@pytest.fixture
+def jax_response_kernel(monkeypatch):
+    """The JAX tracker with its response from the Pallas kernel in interpret
+    mode (its TPU path's response, border zeroed), as the JAX suite runs that
+    kernel on the CPU. The tracker's device program is jitted with the
+    response traced in, so the caches are cleared on the way in and out."""
+    import jax
+
+    from caliscope_tpu.detect import corners as jax_corners
+    from caliscope_tpu.detect.pallas_kernels import chess_corner_response_pallas
+
+    jax.clear_caches()
+    monkeypatch.setattr(
+        jax_corners, "chess_corner_response",
+        lambda images, radius=4.0: chess_corner_response_pallas(images, radius=radius, interpret=True),
+    )
+    yield
+    monkeypatch.undo()
+    jax.clear_caches()
+
+
+def test_edge_cut_boards_keep_the_jax_kernels_corners(boards, edge_cut, jax_response_kernel):
+    """The port drops, after every gate, the corners its homography expects
+    within the response's zeroed border (PAD px) or outside the frame, and
+    nothing else: against the JAX tracker on its kernel's response, every
+    corner the port reports is the JAX package's (same ids, same position to
+    one float32 ulp at these coordinates, 3.05e-5 px below 512 px), and
+    every corner it leaves out has its truth within PAD px (+ 1 px for the
+    homography's error) of the frame's edge or beyond it."""
+    jch, _ = boards
+    frames, truths, got = edge_cut
+    want = JaxTracker(jch).get_points_batch(frames)
+    h, w = frames.shape[1:]
+    n_dropped = 0
+    for g, wp, gt in zip(got, want, truths):
+        assert np.isin(g.keypoint_id, wp.keypoint_id).all()
+        at = {int(k): j for j, k in enumerate(wp.keypoint_id)}
+        rows = [at[int(k)] for k in g.keypoint_id]
+        np.testing.assert_array_equal(g.object_id, wp.object_id[rows])
+        np.testing.assert_array_equal(g.obj_loc, wp.obj_loc[rows])
+        if len(g):
+            assert np.abs(g.img_loc - wp.img_loc[rows]).max() <= 3.06e-5
+        dropped = np.setdiff1d(wp.keypoint_id, g.keypoint_id)
+        x, y = gt[dropped, 0], gt[dropped, 1]
+        inner = (x >= PAD + 1) & (x <= w - 2 - PAD) & (y >= PAD + 1) & (y <= h - 2 - PAD)
+        assert not inner.any()
+        n_dropped += len(dropped)
+    assert n_dropped > 0

@@ -118,7 +118,7 @@ def test_module_list_covers_the_package():
                  "caliscope_tpu_torch.workspace", "caliscope_tpu_torch.presenters",
                  "caliscope_tpu_torch.presenters.signal", "caliscope_tpu_torch.presenters.processing",
                  "caliscope_tpu_torch.presenters.intrinsic", "caliscope_tpu_torch.presenters.extrinsic",
-                 "caliscope_tpu_torch.__main__", "caliscope_tpu_torch.synthetic.explorer"):
+                 "caliscope_tpu_torch.__main__", "caliscope_tpu_torch.synthetic.explorer", "caliscope_tpu_torch.detect.ring"):
         assert name in SLICE_MODULES
     assert set(SLICE_MODULES) | set(NOT_IN_CANARY) == set(modules)
     assert all(reason for reason in NOT_IN_CANARY.values())
