@@ -2,8 +2,7 @@
 
 Port of caliscope_tpu/__main__.py (reference src/caliscope/__main__.py:46).
 Every command takes --device (default cuda; --device cpu runs on the CPU),
-on which the trackers and solvers run. `gui` is not ported (ROADMAP.md
-item 26) and raises.
+on which the trackers and solvers run, the GUI's included.
 
 Usage:
     python -m caliscope_tpu_torch init <workspace>
@@ -13,6 +12,7 @@ Usage:
     python -m caliscope_tpu_torch calibrate-extrinsics <workspace>
     python -m caliscope_tpu_torch reconstruct <workspace> <recording>
     python -m caliscope_tpu_torch export-board <workspace> <out.png>
+    python -m caliscope_tpu_torch gui [<workspace>]
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ def main(argv=None) -> int:
     p.add_argument("recording", type=str)
     p.add_argument("--frame-step", type=int, default=1)
 
-    p = sub.add_parser("gui", help="launch the GUI (not ported yet)")
+    p = sub.add_parser("gui", help="launch the GUI (PySide6 if installed, headless-Qt otherwise)")
     p.add_argument("workspace", type=Path, nargs="?", default=None)
 
     p = sub.add_parser("export-board", help="write the workspace's calibration board as a printable PNG")
@@ -67,9 +67,9 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     if args.command == "gui":
-        from caliscope_tpu_torch.solvers.bundle import not_ported
+        from caliscope_tpu_torch.gui import main as gui_main
 
-        raise not_ported("The GUI", "item 26, the GUI")
+        return gui_main(args.workspace, device=args.device)
 
     from caliscope_tpu_torch.logger import setup_logging
     from caliscope_tpu_torch.workspace import Workspace

@@ -4,10 +4,9 @@ Port of caliscope_tpu/presenters/intrinsic.py (reference
 src/caliscope/gui/presenters/intrinsic_calibration_presenter.py:52):
 extract-then-calibrate per camera in a task thread, exposing quality report
 and state for the Intrinsics tab. The tracker runs on its own device, the
-solve on the presenter's (CUDA unless device="cpu"). The JAX package can tee
-every tracked frame into a display queue of its GUI (gui.frame_render);
-the port has no GUI yet, so a presenter given a display queue fails its run
-with NotImplementedError (ROADMAP.md item 26).
+solve on the presenter's (CUDA unless device="cpu"). Given a display queue
+(gui.frame_render), the run tees every tracked frame into it; frames and
+points reach the queue as host numpy arrays, whatever device tracked them.
 """
 
 from __future__ import annotations
@@ -36,6 +35,84 @@ class IntrinsicCalibrationState(Enum):
     FAILED = auto()
 
 
+def _host(a):
+    """A host numpy view of a frame or point array: a tensor (on any
+    device) is copied over explicitly, never handed to np.asarray."""
+    import numpy as np
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+class _DisplayTeeTracker(Tracker):
+    """Wraps a tracker and tees every (frame, detections) pair into a
+    display queue as gui.frame_render.TrackedFrame items. Accumulates all
+    detections so the coverage overlay grows as extraction proceeds. Pure
+    pass-through for detection semantics."""
+
+    def __init__(self, inner: Tracker, display_queue):
+        import numpy as np
+
+        self.inner = inner
+        self.queue = display_queue
+        # amortized-growth accumulation buffer: re-concatenating the whole
+        # history per frame was O(n^2) over an extraction, ON the
+        # extraction path. Views of buf[:count] handed to the render
+        # thread stay valid: appends only write past count, and growth
+        # reallocates (the reader's old array is untouched).
+        self._accum_buf = np.zeros((256, 2))
+        self._accum_count = 0
+
+    @property
+    def name(self) -> str:
+        return self.inner.name
+
+    @property
+    def pixel_format(self):
+        return self.inner.pixel_format
+
+    def _detect(self, frame, cam_id: int = 0, rotation_count: int = 0):
+        pkt = self.inner._detect(frame, cam_id, rotation_count)
+        self._offer(frame, pkt)
+        return pkt
+
+    def get_points_batch(self, frames, cam_id: int = 0, rotation_count: int = 0):
+        pkts = self.inner.get_points_batch(frames, cam_id, rotation_count)
+        for frame, pkt in zip(frames, pkts):
+            self._offer(frame, pkt)
+        return pkts
+
+    def _offer(self, frame, pkt) -> None:
+        import numpy as np
+
+        from caliscope_tpu_torch.gui.frame_render import TrackedFrame, offer_frame
+
+        current = _host(pkt.img_loc).reshape(-1, 2) if len(pkt) else np.zeros((0, 2))
+        n = len(current)
+        if n:
+            if self._accum_count + n > len(self._accum_buf):
+                grown = np.zeros((2 * (self._accum_count + n), 2))
+                grown[: self._accum_count] = self._accum_buf[: self._accum_count]
+                self._accum_buf = grown
+            self._accum_buf[self._accum_count : self._accum_count + n] = current
+            self._accum_count += n
+        offer_frame(
+            self.queue,
+            TrackedFrame(_host(frame), current, self._accum_buf[: self._accum_count]),
+        )
+
+    def get_point_name(self, keypoint_id: int) -> str:
+        return self.inner.get_point_name(keypoint_id)
+
+    def get_connected_points(self):
+        return self.inner.get_connected_points()
+
+    def cleanup(self) -> None:
+        self.inner.cleanup()
+
+
 class IntrinsicCalibrationPresenter:
     def __init__(
         self,
@@ -47,9 +124,11 @@ class IntrinsicCalibrationPresenter:
         display_queue=None,
         device=None,
     ):
-        """display_queue: the GUI's display queue of tracked frames
-        (reference gui/views/intrinsic_calibration_widget.py:341); not
-        ported (item 26)."""
+        """display_queue: optional gui.frame_render display queue; when set,
+        every tracked frame is teed into it during extraction (dropping
+        under pressure) so a FrameRenderThread can show live progress —
+        the reference feeds its intrinsic widget the same way
+        (gui/views/intrinsic_calibration_widget.py:341)."""
         self.camera = camera
         self.video_path = Path(video_path) if video_path else None
         self.tracker = tracker
@@ -96,14 +175,17 @@ class IntrinsicCalibrationPresenter:
         def work():
             from caliscope_tpu_torch.api import calibrate_intrinsics, extract_image_points
 
+            tracker = self.tracker
             if self.display_queue is not None:
-                from caliscope_tpu_torch.solvers.bundle import not_ported
-
-                raise not_ported("The live display of tracked frames (gui.frame_render)", "item 26, the GUI")
+                tracker = _DisplayTeeTracker(tracker, self.display_queue)
             points = extract_image_points(
-                self.video_path, self.camera.cam_id, self.tracker,
+                self.video_path, self.camera.cam_id, tracker,
                 frame_step=self.frame_step, progress=None,
             )
+            if self.display_queue is not None:
+                from caliscope_tpu_torch.gui.frame_render import offer_frame
+
+                offer_frame(self.display_queue, None)  # stop sentinel
             self._points = points
             self._busy = "calibrate"
             self.state_changed.emit(self.state)

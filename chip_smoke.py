@@ -118,11 +118,34 @@ on any failed check. Phases:
    not at all (the ChArUco truss closes its gate); multicamera extraction
    with 1 and 4 threads giving the same rows; the playback streamer
    tracking every frame of the recording; the card within 0.05 px of the
-   port's CPU run on camera 0's first 16 extrinsic frames with the board;
-   `gui` raising not_ported. Prints seconds a
+   port's CPU run on camera 0's first 16 extrinsic frames with the board.
+   Prints seconds a
    step, decode MB/s and frames/s a camera, extraction frames/s, the
    device's idle share during `extract`, launches a step, peak memory.
-11. A `kernels` JSON line (each kernel with its launches on every path,
+11. GUI: the same recordings, copied into a fresh project folder, through
+   the port's GUI (caliscope_tpu_torch.gui.main_window.MainWindow on the
+   headless Qt backend, device cuda), driven as a user clicks it: the
+   Project tab's board and routing, the Cameras tab's Calibrate for each
+   camera (frame skip 1, as the CLI step ran; the display queue and its
+   FrameRenderThread live, the undistortion preview on with the CLI run's
+   camera), the Extract tab, the Extrinsics tab's Calibrate, the
+   Reconstruct tab on the recording, the Explorer tab's default preset.
+   Gated on the workspace phase's bounds for the GUI's own files, every
+   step COMPLETE in the Project tab's step strip, the files the GUI wrote
+   (camera_array.toml, the intrinsic reports, the extraction CSV, the
+   capture volume, the recording's exports) equal byte for byte to the
+   CLI's, kernels 2-4 launched as many times as the trackers dispatched and
+   equal to their plain versions at every input, kernel 1 launched as many
+   times as the Schur solves (none: the Extrinsics tab's truss closes its
+   gate and the Explorer's 'auto' solves its small presets densely) and
+   held to its plain version on the Explorer bootstrap's first LM
+   iteration's blocks, the undistortion preview within one grey level of
+   the CPU's, at least one frame displayed a camera and no error on the
+   render thread, and non-empty playback, coverage and lens-model images.
+   Prints seconds a GUI action, extraction frames/s with the display thread
+   on against the CLI's, the device's idle share, frames displayed and
+   dropped, peak memory.
+12. A `kernels` JSON line (each kernel with its launches on every path,
    `launches_by_path`), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -133,8 +156,10 @@ just after; launches made to compare or time a kernel do not count.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import warnings
@@ -3410,14 +3435,15 @@ def _cuda_activity(device, fn):
     return out, wall, sum(e.time_range.elapsed_us() for e in kernels) / 1e6, len(kernels)
 
 
-def workspace_phase(device, smi_line):
-    """Build a workspace of rendered 1280x720 recordings and drive it through
-    the CLI in process, from the videos to a calibrated rig and a
-    reconstruction, on the card. Returns ((ccl, response, windows) launches
-    of the CLI steps, the phase's main path; Schur kernel launches there;
-    {check: (ccl, response, windows) launches} of the multicam 1-vs-4-thread
-    check and the streamer, which are not the main path's)."""
-    import tempfile
+def workspace_phase(device, smi_line, tmp):
+    """Build a workspace of rendered 1280x720 recordings in folder `tmp` and
+    drive it through the CLI in process, from the videos to a calibrated rig
+    and a reconstruction, on the card. Returns ((ccl, response, windows)
+    launches of the CLI steps, the phase's main path; Schur kernel launches
+    there; {check: (ccl, response, windows) launches} of the multicam
+    1-vs-4-thread check and the streamer, which are not the main path's;
+    the project it leaves for the GUI phase: its root, the cameras' truth,
+    the recording's board poses, the seconds a step)."""
     import zlib
 
     import numpy as np
@@ -3438,225 +3464,556 @@ def workspace_phase(device, smi_line):
     from caliscope_tpu_torch.workspace import StepStatus, Workspace
 
     log(f"workspace phase on {smi_line}")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ws_") as tmp:
-        root = Path(tmp) / "ws"
-        seconds, launches_by_step = {}, {}
+    root = Path(tmp) / "ws"
+    seconds, launches_by_step = {}, {}
 
-        def step(name, *argv):
-            before = _detect_counts()[0]
-            t0 = time.perf_counter()
-            rc = cli.main([name, str(root), *argv, "--device", str(device)])
-            sync(device)
-            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
-            launches_by_step[name] = tuple(a - b for a, b in zip(_detect_counts()[0], before))
-            if rc != 0:
-                raise AssertionError(f"workspace: `{name}` returned {rc}")
-
-        step("init")
-        ws = Workspace(root, device=device)
-        board = ws_board()
-        ws.targets.save_intrinsic_charuco(board)  # as the JAX suite's recipe sets the project's board
-        ws.targets.save_routing(TargetRouting(intrinsic="charuco", extrinsic="charuco"))
-        cams = ws_cameras()
+    def step(name, *argv):
+        before = _detect_counts()[0]
         t0 = time.perf_counter()
-        crcs, rec_poses = ws_render_workspace(root, cams)
-        seconds["render and write"] = time.perf_counter() - t0
-        on_disk = sum(p.stat().st_size for p in crcs)
-        log(f"workspace: {len(crcs)} videos, {sum(len(c) for c in crcs.values())} frames of {WS_WH[0]}x{WS_WH[1]}, "
-            f"{on_disk / 1e6:.1f} MB, rendered and written in {seconds['render and write']:.2f} s "
-            f"({WS_RENDER_WORKERS} processes)")
+        rc = cli.main([name, str(root), *argv, "--device", str(device)])
+        sync(device)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        launches_by_step[name] = tuple(a - b for a, b in zip(_detect_counts()[0], before))
+        if rc != 0:
+            raise AssertionError(f"workspace: `{name}` returned {rc}")
 
-        # decode: every frame read back equals the frame written; rates from the page cache
-        decode = {cid: [0, 0, 0.0] for cid in cams}
-        for path, want in sorted(crcs.items()):
-            cid = int(path.stem.split("_")[1])
-            props = read_video_properties(path)
-            if (props.size, props.fps, props.frame_count) != (WS_WH, WS_FPS, len(want)):
-                raise AssertionError(f"workspace: {path} reads as {props}, written {WS_WH} {WS_FPS} fps {len(want)} frames")
-            t0 = time.perf_counter()
-            with FrameSource(path, cid, pixel_format=PixelFormat.GRAY) as src:
-                got = [zlib.crc32(pkt.frame.tobytes()) for pkt in src]
-            decode[cid][2] += time.perf_counter() - t0
-            if got != want:
-                raise AssertionError(f"workspace: {path} decodes to other frames than were written")
-            decode[cid][0] += len(got)
-            decode[cid][1] += len(got) * WS_WH[0] * WS_WH[1]
-        for cid, (n, nbytes, s) in decode.items():
-            log(f"  decode cam {cid}: {n} frames, {nbytes / 1e6 / s:.0f} MB/s, {n / s:.0f} frames/s (page cache)")
+    step("init")
+    ws = Workspace(root, device=device)
+    board = ws_board()
+    ws.targets.save_intrinsic_charuco(board)  # as the JAX suite's recipe sets the project's board
+    ws.targets.save_routing(TargetRouting(intrinsic="charuco", extrinsic="charuco"))
+    cams = ws_cameras()
+    t0 = time.perf_counter()
+    crcs, rec_poses = ws_render_workspace(root, cams)
+    seconds["render and write"] = time.perf_counter() - t0
+    on_disk = sum(p.stat().st_size for p in crcs)
+    log(f"workspace: {len(crcs)} videos, {sum(len(c) for c in crcs.values())} frames of {WS_WH[0]}x{WS_WH[1]}, "
+        f"{on_disk / 1e6:.1f} MB, rendered and written in {seconds['render and write']:.2f} s "
+        f"({WS_RENDER_WORKERS} processes)")
 
-        step("export-board", str(root / "board.png"), "--px-per-square", "100")
-        png = (root / "board.png").read_bytes()
-        if not png.startswith(b"\x89PNG\r\n\x1a\n"):
-            raise AssertionError("workspace: export-board wrote no PNG")
+    # decode: every frame read back equals the frame written; rates from the page cache
+    decode = {cid: [0, 0, 0.0] for cid in cams}
+    for path, want in sorted(crcs.items()):
+        cid = int(path.stem.split("_")[1])
+        props = read_video_properties(path)
+        if (props.size, props.fps, props.frame_count) != (WS_WH, WS_FPS, len(want)):
+            raise AssertionError(f"workspace: {path} reads as {props}, written {WS_WH} {WS_FPS} fps {len(want)} frames")
+        t0 = time.perf_counter()
+        with FrameSource(path, cid, pixel_format=PixelFormat.GRAY) as src:
+            got = [zlib.crc32(pkt.frame.tobytes()) for pkt in src]
+        decode[cid][2] += time.perf_counter() - t0
+        if got != want:
+            raise AssertionError(f"workspace: {path} decodes to other frames than were written")
+        decode[cid][0] += len(got)
+        decode[cid][1] += len(got) * WS_WH[0] * WS_WH[1]
+    for cid, (n, nbytes, s) in decode.items():
+        log(f"  decode cam {cid}: {n} frames, {nbytes / 1e6 / s:.0f} MB/s, {n / s:.0f} frames/s (page cache)")
+
+    step("export-board", str(root / "board.png"), "--px-per-square", "100")
+    png = (root / "board.png").read_bytes()
+    if not png.startswith(b"\x89PNG\r\n\x1a\n"):
+        raise AssertionError("workspace: export-board wrote no PNG")
+    step("status")
+
+    # ---- the main path, its launches counted ----------------------------------
+    trackers, intrinsic_outputs, runs = [], [], []
+    _zero_detect_counts()
+    fused_schur.schur_s_rhs.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    with _recording_attr(Workspace, "make_intrinsic_tracker", trackers), \
+            _recording_attr(Workspace, "make_extrinsic_tracker", trackers), \
+            _recording_attr(reporting, "print_intrinsic_report", intrinsic_outputs), \
+            _recording_attr(reporting, "print_extrinsic_report", runs), \
+            recorded_detect_kernels({}) as main_inputs:
+        step("calibrate-intrinsics", "--frame-step", "1")
+        _, wall, busy, n_kernels = _cuda_activity(device, lambda: step("extract"))
+        step("calibrate-extrinsics")
+        step("reconstruct", "rec0")
         step("status")
+    sync(device)
+    (n_ccl, n_resp, n_win), resident = _detect_counts()
+    schur_launches = fused_schur.schur_s_rhs.launches
+    dispatches = sum(t.dispatches for t in trackers)
+    peak = torch.cuda.max_memory_allocated(device)
+    recorded_mib = sum(a.numel() * a.element_size() for sub in (main_inputs["ccl"], main_inputs["response"], main_inputs["windows"])
+                       for k, args in sub.items() if k != "calls" for a in args if hasattr(a, "numel")) / 2**20
 
-        # ---- the main path, its launches counted ----------------------------------
-        trackers, intrinsic_outputs, runs = [], [], []
+    # ---- multicam extraction with 1 and 4 threads, and the streamer: gates of
+    # their own, their launches counted apart from the main path's ------------
+    rec_videos = {cid: root / "recordings" / "rec0" / f"cam_{cid}.mp4" for cid in cams}
+    check_launches = {}
+
+    def counted(name, run):
+        """run(trackers) with kernels 2-4 recorded; its launches gated against
+        its trackers' dispatches and its inputs held to the plain versions."""
+        made = []
         _zero_detect_counts()
-        fused_schur.schur_s_rhs.launches = 0
-        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        with recorded_detect_kernels({}) as inputs:
+            out = run(made)
+        sync(device)
+        seconds[name] = time.perf_counter() - t0
+        launches, res = _detect_counts()
+        n = sum(t.dispatches for t in made)
+        if device.type == "cuda" and not (launches == (n, n, 2 * n) and res == n and n > 0):
+            raise AssertionError(f"workspace {name}: launches {launches} (resident {res}) for {n} dispatches")
+        if device.type == "cuda":
+            check_recorded_detect_kernels(inputs, launches, f"workspace {name}")
+        check_launches[name] = launches
+        return out
+
+    def multicam(made):
+        out = {}
+        for n in (1, 4):
+            made.append(CharucoTracker(board, device=device))
+            with _max_threads(n):
+                out[n] = extract_image_points_multicam(rec_videos, made[-1], progress=None)
+        return out
+
+    def stream(made):
+        made.append(CharucoTracker(board, device=device))
+        got = []
+        streamer = FramePacketStreamer(rec_videos[0], cam_id=0, tracker=made[-1], fps_override=1000.0,
+                                       queue_depth=WS_RECORDING_FRAMES + 1)
+        q = streamer.subscribe()
+        t0 = time.perf_counter()
+        streamer.play()
+        try:
+            while time.perf_counter() - t0 < 120:
+                item = q.get(timeout=60)
+                if item is None:
+                    break
+                got.append(item)
+        finally:
+            streamer.stop()
+        return got
+
+    by_threads = counted("multicam 1 and 4 threads", multicam)
+    streamed = counted("streamer", stream)
+
+    # ---- gates ---------------------------------------------------------------
+    status = ws.get_workflow_status()
+    steps = (status.intrinsic_step_status, status.extrinsic_2d_step_status, status.extrinsic_calibration_step_status)
+    if steps != (StepStatus.COMPLETE,) * 3:
+        raise AssertionError(f"workspace: workflow steps {steps}, not all COMPLETE")
+    if len(intrinsic_outputs) != len(cams):
+        raise AssertionError(f"workspace: {len(intrinsic_outputs)} intrinsic calibrations for {len(cams)} cameras")
+    for out in intrinsic_outputs:
+        f_true = cams[out.camera.cam_id][0][0, 0]
+        rel = abs(out.camera.matrix[0, 0] - f_true) / f_true
+        log(f"  intrinsics cam {out.camera.cam_id}: RMSE {out.report.rmse:.4f} px, fx {out.camera.matrix[0, 0]:.2f} "
+            f"(truth {f_true:.1f}, {100 * rel:.3f} %), {out.report.frames_used} frames")
+        if not (out.report.rmse < WS_MAX_RMSE_PX and rel < WS_MAX_FOCAL_REL):
+            raise AssertionError(f"workspace: camera {out.camera.cam_id}'s intrinsics miss the recipe's bounds")
+    points = ImagePoints.from_csv(ws.xy_csv_path("CHARUCO"))
+    n_frames_extracted = len(cams) * WS_STATIONS * WS_PER_STATION
+    log(f"  extract: {len(points)} observations, {n_frames_extracted / seconds['extract']:.1f} frames/s over "
+        f"{len(cams)} cameras, device idle {100 * (1 - busy / wall):.1f} % ({n_kernels} GPU kernels, "
+        f"{busy:.3f} s busy of {wall:.3f} s)")
+    if len(points) <= WS_MIN_OBSERVATIONS or set(np.unique(points.cam_id).tolist()) != set(cams):
+        raise AssertionError(f"workspace: {len(points)} observations from cameras {np.unique(points.cam_id)}")
+    volume = runs[-1].capture_volume
+    rmse = volume.reprojection_report.overall_rmse
+    est = {cid: -c.rotation.T @ c.translation for cid, c in volume.camera_array.posed_cameras.items()}
+    ids = sorted(est)
+    truth_c = np.array([-cams[c][1].T @ cams[c][2] for c in ids])
+    s, R, t = (np.asarray(v, dtype=np.float64) for v in umeyama(np.array([est[c] for c in ids]), truth_c))
+    center_err = np.linalg.norm(float(s) * np.array([est[c] for c in ids]) @ R.T + t - truth_c, axis=1)
+    reloaded = ws.capture_volume.load(device=device).reprojection_report.overall_rmse
+    log(f"  extrinsics: RMSE {rmse:.4f} px (reloaded {reloaded:.6f}), centers within {1000 * center_err.max():.2f} mm "
+        f"after a similarity, scale {float(s):.5f}; Schur kernel launches {schur_launches} (constrained: gate closed)")
+    if not (ids == sorted(cams) and rmse < WS_MAX_RMSE_PX and center_err.max() < WS_MAX_CENTER_M
+            and abs(float(s) - 1.0) < WS_MAX_SCALE_REL and abs(reloaded - rmse) < 1e-6):
+        raise AssertionError("workspace: the calibrated rig misses the recipe's bounds")
+    if schur_launches != 0:
+        raise AssertionError(f"workspace: the Schur kernel launched {schur_launches} times on constrained problems")
+    out_dir = root / "recordings" / "rec0" / "CHARUCO"
+    if not ((out_dir / "xyz_CHARUCO.csv").exists() and (out_dir / "xyz_CHARUCO.trc").exists()):
+        raise AssertionError(f"workspace: reconstruct wrote no xyz CSV / TRC under {out_dir}")
+    wp = WorldPoints.from_csv(out_dir / "xyz_CHARUCO.csv")
+    aligned = float(s) * wp.xyz @ R.T + t
+    truth_x = np.array([ws_board_corners_world(rec_poses[si])[k] for si, k in zip(wp.sync_index, wp.keypoint_id)])
+    recon_err = np.linalg.norm(aligned - truth_x, axis=1)
+    log(f"  reconstruct: {len(wp)} points over {len(np.unique(wp.sync_index))} frames, median error "
+        f"{1000 * np.median(recon_err):.3f} mm (max {1000 * recon_err.max():.3f})")
+    if not np.median(recon_err) < WS_MAX_RECON_MEDIAN_M:
+        raise AssertionError("workspace: the recording's board corners miss the truth")
+    one, four = by_threads[1], by_threads[4]
+    for col in ("sync_index", "cam_id", "object_id", "keypoint_id", "img_xy", "obj_loc", "frame_time"):
+        if not np.array_equal(getattr(one, col), getattr(four, col), equal_nan=col in ("obj_loc", "frame_time")):
+            raise AssertionError(f"workspace: multicam extraction with 1 and 4 threads differs in {col}")
+    if ([tf.packet.frame_index for tf in streamed] != list(range(WS_RECORDING_FRAMES))
+            or not all(isinstance(tf, TrackedFrame) for tf in streamed)):
+        raise AssertionError(f"workspace: the streamer gave {len(streamed)} tracked frames, not one a frame")
+    log(f"  streamer: {len(streamed)} tracked frames of cam 0 in {seconds['streamer']:.2f} s, "
+        f"{sum(len(tf.points) > 0 for tf in streamed)} with the board")
+    log(f"  kernel launches of the CLI steps: labeling {n_ccl} (resident {resident}), response {n_resp}, windows "
+        f"{n_win} for {dispatches} device-program dispatches; by step {json.dumps(launches_by_step)}")
+    if not (n_ccl == n_resp == resident == dispatches and n_win == 2 * dispatches and dispatches > 0):
+        raise AssertionError("workspace: kernel launches do not match the dispatches")
+    if device.type == "cuda":
+        check_recorded_detect_kernels(main_inputs, (n_ccl, n_resp, n_win), "workspace CLI steps")
+    log(f"  launches outside the CLI steps (not the main path's): {json.dumps(check_launches)}")
+    log(f"  peak device memory {peak / 2**20:.1f} MiB over the CLI steps, of which {recorded_mib:.1f} MiB the "
+        f"recorder's copies of the kernels' inputs")
+
+    # ---- the card against the port's CPU run (not counted) ----------------------
+    clip = Path(tmp) / "clip" / "cam_0.mp4"
+    seen = sorted(set(points.sync_index[points.cam_id == 0].tolist()))[:WS_CLIP_FRAMES]  # sync = frame here
+    with FrameSource(ws.video_path("extrinsic", 0), 0, wanted_indices=set(seen), pixel_format=PixelFormat.GRAY) as src:
+        write_gray_video(clip, [pkt.frame for pkt in src], WS_FPS)
+    card = extract_image_points(clip, 0, CharucoTracker(board, device=device), progress=None)
+    t0 = time.perf_counter()
+    cpu = extract_image_points(clip, 0, CharucoTracker(board, device="cpu"), progress=None)
+    cpu_s = time.perf_counter() - t0
+    same = all(np.array_equal(getattr(card, c), getattr(cpu, c)) for c in ("sync_index", "object_id", "keypoint_id"))
+    gap = float(np.abs(card.img_xy - cpu.img_xy).max()) if same and len(card) else float("inf")
+    log(f"  card vs CPU on cam 0's first {len(seen)} extrinsic frames with the board: {len(card)} observations, "
+        f"max {gap:.2e} px (CPU {cpu_s:.1f} s)")
+    if not (same and gap < GPU_VS_CPU_ATOL_PX):
+        raise AssertionError("workspace: the card's extraction parts from the CPU's")
+
+    log("  seconds per step " + json.dumps({k: round(v, 3) for k, v in seconds.items()}))
+    handoff = dict(root=root, cams=cams, rec_poses=rec_poses, seconds=seconds, extract_frames=n_frames_extracted,
+                   idle=1 - busy / wall)
+    return (n_ccl, n_resp, n_win), schur_launches, check_launches, handoff
+
+
+# ---------------------------------------------------------------------------
+# GUI: the workspace phase's recordings through the port's main window
+# ---------------------------------------------------------------------------
+
+GUI_ACTION_TIMEOUT_S = 300.0
+GUI_UNDISTORT_MAX_GREY = 1  # grid_sample on the card against the CPU (CameraData.undistort_frame)
+
+
+def _pump(app, until, what, timeout=GUI_ACTION_TIMEOUT_S):
+    """Process the GUI's queued events until until() holds."""
+    deadline = time.monotonic() + timeout
+    while True:
+        app.processEvents()
+        if until():
+            return
+        if time.monotonic() > deadline:
+            raise AssertionError(f"gui: {what} did not finish within {timeout:.0f} s")
+        time.sleep(0.005)
+
+
+def _largest_difference(a: bytes, b: bytes):
+    """Max |x - y| over the numbers two text files hold in the same places
+    (None when their words differ otherwise or in count)."""
+    import re
+
+    num = re.compile(rb"[-+]?(?:\d+\.?\d*|\.\d+)(?:[eE][-+]?\d+)?|nan|inf")
+    ta, tb = num.split(a), num.split(b)
+    na, nb = num.findall(a), num.findall(b)
+    if ta != tb or len(na) != len(nb):
+        return None
+    return max((abs(float(x) - float(y)) for x, y in zip(na, nb) if x != y), default=0.0)
+
+
+def _same_files(cli_root, gui_root, rels):
+    """Each file under rels (files, or folders taken whole) in both roots,
+    compared byte for byte, each root's own path read as the same word (a
+    TRC header names the file's path). Returns {relative path: bytes};
+    raises on the first file that differs or is missing, with its largest
+    difference."""
+    compared = {}
+    for rel in rels:
+        a, b = cli_root / rel, gui_root / rel
+        names = sorted(p.relative_to(cli_root) for p in a.rglob("*") if p.is_file()) if a.is_dir() else [Path(rel)]
+        gui_names = sorted(p.relative_to(gui_root) for p in b.rglob("*") if p.is_file()) if b.is_dir() else [Path(rel)]
+        if names != gui_names or not names:
+            raise AssertionError(f"gui: {rel} holds {[str(n) for n in gui_names]}, the CLI's {[str(n) for n in names]}")
+        for name in names:
+            want = (cli_root / name).read_bytes().replace(str(cli_root).encode(), b"<project>")
+            got = (gui_root / name).read_bytes().replace(str(gui_root).encode(), b"<project>")
+            if got != want:
+                raise AssertionError(f"gui: {name} differs from the CLI's (largest numeric difference "
+                                     f"{_largest_difference(got, want)})")
+            compared[str(name)] = len(got)
+    return compared
+
+
+def gui_phase(device, smi_line, handoff):
+    """The workspace phase's recordings, copied into a fresh project folder,
+    through the port's GUI on the headless Qt backend, driven as a user
+    clicks it (module docstring, phase 11). Returns ((ccl, response,
+    windows) launches, Schur kernel launches) of the GUI run, its main
+    path."""
+    os.environ["CALISCOPE_TPU_FORCE_HEADLESS_QT"] = "1"
+    import shutil
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from caliscope_tpu_torch import api
+    from caliscope_tpu_torch.cameras import CameraArray, CameraData
+    from caliscope_tpu_torch.gui import qt
+    from caliscope_tpu_torch.gui.main_window import MainWindow
+    from caliscope_tpu_torch.gui.tab_names import TabName
+    from caliscope_tpu_torch.observations import ImagePoints, WorldPoints
+    from caliscope_tpu_torch.ops.similarity import umeyama
+    from caliscope_tpu_torch.presenters.processing import ProcessingState
+    from caliscope_tpu_torch.solvers import fused_schur as FS
+    from caliscope_tpu_torch.workspace import StepStatus, Workspace
+
+    if qt.USING_PYSIDE6:
+        raise AssertionError("gui: CALISCOPE_TPU_FORCE_HEADLESS_QT is set and PySide6 was loaded")
+    log(f"gui phase on {smi_line}")
+    cli_root, cams, rec_poses = handoff["root"], handoff["cams"], handoff["rec_poses"]
+    root = cli_root.parent / "gui_ws"
+    t0 = time.perf_counter()
+    for sub in ("calibration/intrinsic", "calibration/extrinsic", "recordings/rec0"):
+        (root / sub).mkdir(parents=True)
+        for video in sorted((cli_root / sub).glob("cam_*.mp4")):
+            shutil.copyfile(video, root / sub / video.name)
+    log(f"gui: recordings copied into a fresh project folder in {time.perf_counter() - t0:.2f} s")
+    cli_cams = CameraArray.from_toml(cli_root / "camera_array.toml")  # the undistortion preview's cameras
+    app = qt.QApplication.instance() or qt.QApplication([])
+    seconds = {}
+
+    def act(name, click, done):
+        t0 = time.perf_counter()
+        click()
+        _pump(app, done, name)
+        sync(device)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+
+    # the Cameras tab's extraction spans (start, end) a camera, and each
+    # undistortion preview call, with the first of each camera held to the CPU
+    spans, undistorted, grey_gap = {}, Counter(), {}
+    extract, undistort = api.extract_image_points, CameraData.undistort_frame
+
+    def timed_extract(video_path, cam_id, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = extract(video_path, cam_id, *args, **kwargs)
+        sync(device)
+        spans[cam_id] = (t0, time.perf_counter())
+        return out
+
+    def counted_undistort(cam, frame, device=None):
+        out = undistort(cam, frame, device=device)
+        if cam.cam_id not in grey_gap:
+            cpu = undistort(cam, frame, device="cpu")
+            grey_gap[cam.cam_id] = int(np.abs(out.astype(np.int16) - cpu.astype(np.int16)).max())
+        undistorted[cam.cam_id] += 1
+        return out
+
+    trackers, pipeline = [], PipelineRecorder()
+    _zero_detect_counts()
+    FS.schur_s_rhs.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    api.extract_image_points, CameraData.undistort_frame = timed_extract, counted_undistort
+    win = None
+    try:
         with _recording_attr(Workspace, "make_intrinsic_tracker", trackers), \
                 _recording_attr(Workspace, "make_extrinsic_tracker", trackers), \
-                _recording_attr(reporting, "print_intrinsic_report", intrinsic_outputs), \
-                _recording_attr(reporting, "print_extrinsic_report", runs), \
-                recorded_detect_kernels({}) as main_inputs:
-            step("calibrate-intrinsics", "--frame-step", "1")
-            _, wall, busy, n_kernels = _cuda_activity(device, lambda: step("extract"))
-            step("calibrate-extrinsics")
-            step("reconstruct", "rec0")
-            step("status")
-        sync(device)
-        (n_ccl, n_resp, n_win), resident = _detect_counts()
-        schur_launches = fused_schur.schur_s_rhs.launches
-        dispatches = sum(t.dispatches for t in trackers)
-        peak = torch.cuda.max_memory_allocated(device)
-        recorded_mib = sum(a.numel() * a.element_size() for sub in (main_inputs["ccl"], main_inputs["response"], main_inputs["windows"])
-                           for k, args in sub.items() if k != "calls" for a in args if hasattr(a, "numel")) / 2**20
-
-        # ---- multicam extraction with 1 and 4 threads, and the streamer: gates of
-        # their own, their launches counted apart from the main path's ------------
-        rec_videos = {cid: root / "recordings" / "rec0" / f"cam_{cid}.mp4" for cid in cams}
-        check_launches = {}
-
-        def counted(name, run):
-            """run(trackers) with kernels 2-4 recorded; its launches gated against
-            its trackers' dispatches and its inputs held to the plain versions."""
-            made = []
-            _zero_detect_counts()
+                pipeline.patched(), recorded_detect_kernels({}) as inputs:
             t0 = time.perf_counter()
-            with recorded_detect_kernels({}) as inputs:
-                out = run(made)
+            win = MainWindow(workspace_dir=root, settings_path=root / "app_settings.toml", device=device)
+            seconds["open project"] = time.perf_counter() - t0
+            ws = win.ws
+
+            # 1. Project tab: the board and the routing, as the CLI recipe sets them
+            t0 = time.perf_counter()
+            board = ws_board()
+            project = win.project_tab
+            panel = project.intrinsic_charuco_panel
+            panel.rows.setValue(board.rows)
+            panel.columns.setValue(board.columns)
+            panel.square_mm.setValue(board.square_size_m * 1000.0)
+            panel.apply_btn.click()
+            project.intrinsic_type.setCurrentText("charuco")
+            project.extrinsic_type.setCurrentText("charuco")
+            project.same_as_intrinsic.setChecked(True)
+            got_board = ws.targets.load_extrinsic_charuco()
+            if (got_board.rows, got_board.columns, got_board.square_size_m) != (board.rows, board.columns, board.square_size_m):
+                raise AssertionError(f"gui: the Project tab saved {got_board}, not the recipe's {board}")
+            seconds["project targets"] = time.perf_counter() - t0
+
+            # 2. Cameras tab: each camera's Calibrate, the display thread live
+            cameras_tab = win.cameras_tab
+            cameras_tab.frame_skip_spin.setValue(1)  # the CLI step's --frame-step 1 (the tab's default is 5)
+            shown, dropped = {}, {}
+            _, cam_wall, cam_busy, cam_kernels = _cuda_activity(device, lambda: [
+                _gui_calibrate_camera(app, act, cameras_tab, cid, cli_cams.cameras[cid], shown, dropped)
+                for cid in sorted(cams)
+            ])
+            # 3. Extract tab
+            if not win.tabs.isTabEnabled(win.tab_index(TabName.EXTRACT)):
+                raise AssertionError("gui: the Extract tab is disabled after every camera's intrinsics")
+            extract_tab = win.extract_tab
+            _, ext_wall, ext_busy, ext_kernels = _cuda_activity(device, lambda: act(
+                "extract", extract_tab.extract_btn.click, extract_tab.extract_btn.isEnabled))
+            if "observations" not in extract_tab.status.text():
+                raise AssertionError(f"gui: extraction failed: {extract_tab.status.text()}")
+            # 4. Extrinsics tab
+            if not win.tabs.isTabEnabled(win.tab_index(TabName.EXTRINSICS)):
+                raise AssertionError("gui: the Extrinsics tab is disabled after the extraction")
+            xt = win.extrinsic_tab
+            n_solves0 = len(pipeline.solves)
+            act("calibrate extrinsics", xt.calib_btn.click, xt.calib_btn.isEnabled)
+            if not xt.summary.text().startswith("RMSE"):
+                raise AssertionError(f"gui: extrinsic calibration failed: {xt.summary.text()}")
+            schur_extrinsics = FS.schur_s_rhs.launches
+            extrinsic_solves = pipeline.solves[n_solves0:]
+            # 5. Reconstruct tab
+            if not win.tabs.isTabEnabled(win.tab_index(TabName.RECONSTRUCT)):
+                raise AssertionError("gui: the Reconstruct tab is disabled after the extrinsic calibration")
+            rv = win.reconstruct_tab
+            rv.rec_box.setCurrentText("rec0")
+            if rv.selected_tracker_key() is not None:
+                raise AssertionError(f"gui: the Reconstruct tab's tracker is {rv.tracker_box.currentText()}, not the target's")
+            act("reconstruct", rv.run_btn.click, lambda: rv.state in (ProcessingState.COMPLETE, ProcessingState.FAILED))
+            if rv.state != ProcessingState.COMPLETE:
+                raise AssertionError(f"gui: reconstruction failed: {rv.status.text()}")
+            # 6. Explorer tab, its default preset
+            ex = win.explorer_tab
+            n_solves0, n_results0 = len(pipeline.solves), len(pipeline.results)
+            act("explorer", ex.run_btn.click, ex.run_btn.isEnabled)
+            if not ex.status.text().startswith("RMSE"):
+                raise AssertionError(f"gui: the Explorer's pipeline failed: {ex.status.text()}")
+            project.refresh()
+            strip = {name: project.step_strip.step_state(name) for name in project.step_strip.STEPS}
             sync(device)
-            seconds[name] = time.perf_counter() - t0
-            launches, res = _detect_counts()
-            n = sum(t.dispatches for t in made)
-            if device.type == "cuda" and not (launches == (n, n, 2 * n) and res == n and n > 0):
-                raise AssertionError(f"workspace {name}: launches {launches} (resident {res}) for {n} dispatches")
-            if device.type == "cuda":
-                check_recorded_detect_kernels(inputs, launches, f"workspace {name}")
-            check_launches[name] = launches
-            return out
+    except BaseException:
+        if win is not None:
+            win.close()  # stops the workspace watcher and the render threads
+        raise
+    finally:
+        api.extract_image_points, CameraData.undistort_frame = extract, undistort
+    (n_ccl, n_resp, n_win), resident = _detect_counts()
+    schur_launches = FS.schur_s_rhs.launches
+    dispatches = sum(t.dispatches for t in trackers)
+    peak = torch.cuda.max_memory_allocated(device)
 
-        def multicam(made):
-            out = {}
-            for n in (1, 4):
-                made.append(CharucoTracker(board, device=device))
-                with _max_threads(n):
-                    out[n] = extract_image_points_multicam(rec_videos, made[-1], progress=None)
-            return out
+    # ---- gates: the workspace phase's, on the GUI's own files ------------------------
+    status = ws.get_workflow_status()
+    steps = (status.intrinsic_step_status, status.extrinsic_2d_step_status, status.extrinsic_calibration_step_status)
+    if steps != (StepStatus.COMPLETE,) * 3 or set(strip.values()) != {"●"}:
+        raise AssertionError(f"gui: workflow steps {steps}, step strip {strip}")
+    saved = ws.cameras.load()
+    for cid in sorted(cams):
+        report = ws.intrinsic_reports.load(cid)
+        f_true, fx = cams[cid][0][0, 0], shown[cid]["fx"]
+        rel = abs(fx - f_true) / f_true
+        log(f"  gui intrinsics cam {cid}: RMSE {report.rmse:.4f} px, fx {fx:.2f} (truth {f_true:.1f}, "
+            f"{100 * rel:.3f} %), {report.frames_used} frames; {shown[cid]['displayed']} frames displayed "
+            f"({undistorted[cid]} undistorted, {grey_gap.get(cid)} grey levels from the CPU's), {dropped[cid]} dropped")
+        if not (report.rmse < WS_MAX_RMSE_PX and rel < WS_MAX_FOCAL_REL):
+            raise AssertionError(f"gui: camera {cid}'s intrinsics miss the recipe's bounds")
+        if shown[cid]["displayed"] < 1 or undistorted[cid] < 1 or grey_gap[cid] > GUI_UNDISTORT_MAX_GREY:
+            raise AssertionError(f"gui: camera {cid}'s live display: {shown[cid]}, undistorted {undistorted[cid]}, "
+                                 f"{grey_gap.get(cid)} grey levels from the CPU's")
+    points = ImagePoints.from_csv(ws.xy_csv_path("CHARUCO"))
+    if len(points) <= WS_MIN_OBSERVATIONS or set(np.unique(points.cam_id).tolist()) != set(cams):
+        raise AssertionError(f"gui: {len(points)} observations from cameras {np.unique(points.cam_id)}")
+    volume = xt.presenter.capture_volume
+    rmse = volume.reprojection_report.overall_rmse
+    est = {cid: -c.rotation.T @ c.translation for cid, c in saved.posed_cameras.items()}
+    ids = sorted(est)
+    truth_c = np.array([-cams[c][1].T @ cams[c][2] for c in ids])
+    s, R, t = (np.asarray(v, dtype=np.float64) for v in umeyama(np.array([est[c] for c in ids]), truth_c))
+    center_err = np.linalg.norm(float(s) * np.array([est[c] for c in ids]) @ R.T + t - truth_c, axis=1)
+    log(f"  gui extrinsics: RMSE {rmse:.4f} px, centers within {1000 * center_err.max():.2f} mm after a similarity, "
+        f"scale {float(s):.5f}; {len(points)} observations")
+    if not (ids == sorted(cams) and rmse < WS_MAX_RMSE_PX and center_err.max() < WS_MAX_CENTER_M
+            and abs(float(s) - 1.0) < WS_MAX_SCALE_REL):
+        raise AssertionError("gui: the calibrated rig misses the recipe's bounds")
+    wp = WorldPoints.from_csv(root / "recordings" / "rec0" / "CHARUCO" / "xyz_CHARUCO.csv")
+    truth_x = np.array([ws_board_corners_world(rec_poses[si])[k] for si, k in zip(wp.sync_index, wp.keypoint_id)])
+    recon_err = np.linalg.norm(float(s) * wp.xyz @ R.T + t - truth_x, axis=1)
+    log(f"  gui reconstruct: {len(wp)} points, median error {1000 * np.median(recon_err):.3f} mm; "
+        f"{rv.stats.text()}")
+    if not np.median(recon_err) < WS_MAX_RECON_MEDIAN_M:
+        raise AssertionError("gui: the recording's board corners miss the truth")
 
-        def stream(made):
-            made.append(CharucoTracker(board, device=device))
-            got = []
-            streamer = FramePacketStreamer(rec_videos[0], cam_id=0, tracker=made[-1], fps_override=1000.0,
-                                           queue_depth=WS_RECORDING_FRAMES + 1)
-            q = streamer.subscribe()
-            t0 = time.perf_counter()
-            streamer.play()
-            try:
-                while time.perf_counter() - t0 < 120:
-                    item = q.get(timeout=60)
-                    if item is None:
-                        break
-                    got.append(item)
-            finally:
-                streamer.stop()
-            return got
+    # ---- the GUI's files are the CLI's ----------------------------------------------
+    compared = _same_files(cli_root, root, [
+        "camera_array.toml", "intrinsic/reports", ws.xy_csv_path("CHARUCO").relative_to(root), "capture_volume",
+        "recordings/rec0/CHARUCO",
+    ])
+    log(f"  gui files equal to the CLI's byte for byte: {len(compared)} files, {sum(compared.values())} bytes: "
+        + ", ".join(sorted(compared)))
 
-        by_threads = counted("multicam 1 and 4 threads", multicam)
-        streamed = counted("streamer", stream)
+    # ---- images the user sees -----------------------------------------------------------
+    panel0 = cameras_tab._panels[min(cams)]
+    for name, label in (("playback", xt.playback.canvas), ("coverage heatmap", panel0.heatmap.canvas),
+                        ("lens model", panel0.lens.canvas), ("live view", panel0.video_label),
+                        ("reconstruction preview", rv.preview.canvas if rv.preview is not None else None)):
+        img = label.pixmap().image.array if label is not None and label.pixmap() is not None else None
+        if img is None or img.size == 0 or not (img != img.reshape(-1, img.shape[-1])[0]).any():
+            raise AssertionError(f"gui: the {name} image is empty or flat")
 
-        # ---- gates ---------------------------------------------------------------
-        status = ws.get_workflow_status()
-        steps = (status.intrinsic_step_status, status.extrinsic_2d_step_status, status.extrinsic_calibration_step_status)
-        if steps != (StepStatus.COMPLETE,) * 3:
-            raise AssertionError(f"workspace: workflow steps {steps}, not all COMPLETE")
-        if len(intrinsic_outputs) != len(cams):
-            raise AssertionError(f"workspace: {len(intrinsic_outputs)} intrinsic calibrations for {len(cams)} cameras")
-        for out in intrinsic_outputs:
-            f_true = cams[out.camera.cam_id][0][0, 0]
-            rel = abs(out.camera.matrix[0, 0] - f_true) / f_true
-            log(f"  intrinsics cam {out.camera.cam_id}: RMSE {out.report.rmse:.4f} px, fx {out.camera.matrix[0, 0]:.2f} "
-                f"(truth {f_true:.1f}, {100 * rel:.3f} %), {out.report.frames_used} frames")
-            if not (out.report.rmse < WS_MAX_RMSE_PX and rel < WS_MAX_FOCAL_REL):
-                raise AssertionError(f"workspace: camera {out.camera.cam_id}'s intrinsics miss the recipe's bounds")
-        points = ImagePoints.from_csv(ws.xy_csv_path("CHARUCO"))
-        n_frames_extracted = len(cams) * WS_STATIONS * WS_PER_STATION
-        log(f"  extract: {len(points)} observations, {n_frames_extracted / seconds['extract']:.1f} frames/s over "
-            f"{len(cams)} cameras, device idle {100 * (1 - busy / wall):.1f} % ({n_kernels} GPU kernels, "
-            f"{busy:.3f} s busy of {wall:.3f} s)")
-        if len(points) <= WS_MIN_OBSERVATIONS or set(np.unique(points.cam_id).tolist()) != set(cams):
-            raise AssertionError(f"workspace: {len(points)} observations from cameras {np.unique(points.cam_id)}")
-        volume = runs[-1].capture_volume
-        rmse = volume.reprojection_report.overall_rmse
-        est = {cid: -c.rotation.T @ c.translation for cid, c in volume.camera_array.posed_cameras.items()}
-        ids = sorted(est)
-        truth_c = np.array([-cams[c][1].T @ cams[c][2] for c in ids])
-        s, R, t = (np.asarray(v, dtype=np.float64) for v in umeyama(np.array([est[c] for c in ids]), truth_c))
-        center_err = np.linalg.norm(float(s) * np.array([est[c] for c in ids]) @ R.T + t - truth_c, axis=1)
-        reloaded = ws.capture_volume.load(device=device).reprojection_report.overall_rmse
-        log(f"  extrinsics: RMSE {rmse:.4f} px (reloaded {reloaded:.6f}), centers within {1000 * center_err.max():.2f} mm "
-            f"after a similarity, scale {float(s):.5f}; Schur kernel launches {schur_launches} (constrained: gate closed)")
-        if not (ids == sorted(cams) and rmse < WS_MAX_RMSE_PX and center_err.max() < WS_MAX_CENTER_M
-                and abs(float(s) - 1.0) < WS_MAX_SCALE_REL and abs(reloaded - rmse) < 1e-6):
-            raise AssertionError("workspace: the calibrated rig misses the recipe's bounds")
-        if schur_launches != 0:
-            raise AssertionError(f"workspace: the Schur kernel launched {schur_launches} times on constrained problems")
-        out_dir = root / "recordings" / "rec0" / "CHARUCO"
-        if not ((out_dir / "xyz_CHARUCO.csv").exists() and (out_dir / "xyz_CHARUCO.trc").exists()):
-            raise AssertionError(f"workspace: reconstruct wrote no xyz CSV / TRC under {out_dir}")
-        wp = WorldPoints.from_csv(out_dir / "xyz_CHARUCO.csv")
-        aligned = float(s) * wp.xyz @ R.T + t
-        truth_x = np.array([ws_board_corners_world(rec_poses[si])[k] for si, k in zip(wp.sync_index, wp.keypoint_id)])
-        recon_err = np.linalg.norm(aligned - truth_x, axis=1)
-        log(f"  reconstruct: {len(wp)} points over {len(np.unique(wp.sync_index))} frames, median error "
-            f"{1000 * np.median(recon_err):.3f} mm (max {1000 * recon_err.max():.3f})")
-        if not np.median(recon_err) < WS_MAX_RECON_MEDIAN_M:
-            raise AssertionError("workspace: the recording's board corners miss the truth")
-        one, four = by_threads[1], by_threads[4]
-        for col in ("sync_index", "cam_id", "object_id", "keypoint_id", "img_xy", "obj_loc", "frame_time"):
-            if not np.array_equal(getattr(one, col), getattr(four, col), equal_nan=col in ("obj_loc", "frame_time")):
-                raise AssertionError(f"workspace: multicam extraction with 1 and 4 threads differs in {col}")
-        if ([tf.packet.frame_index for tf in streamed] != list(range(WS_RECORDING_FRAMES))
-                or not all(isinstance(tf, TrackedFrame) for tf in streamed)):
-            raise AssertionError(f"workspace: the streamer gave {len(streamed)} tracked frames, not one a frame")
-        log(f"  streamer: {len(streamed)} tracked frames of cam 0 in {seconds['streamer']:.2f} s, "
-            f"{sum(len(tf.points) > 0 for tf in streamed)} with the board")
-        log(f"  kernel launches of the CLI steps: labeling {n_ccl} (resident {resident}), response {n_resp}, windows "
-            f"{n_win} for {dispatches} device-program dispatches; by step {json.dumps(launches_by_step)}")
-        if not (n_ccl == n_resp == resident == dispatches and n_win == 2 * dispatches and dispatches > 0):
-            raise AssertionError("workspace: kernel launches do not match the dispatches")
-        if device.type == "cuda":
-            check_recorded_detect_kernels(main_inputs, (n_ccl, n_resp, n_win), "workspace CLI steps")
-        log(f"  launches outside the CLI steps (not the main path's): {json.dumps(check_launches)}")
-        log(f"  peak device memory {peak / 2**20:.1f} MiB over the CLI steps, of which {recorded_mib:.1f} MiB the "
-            f"recorder's copies of the kernels' inputs")
+    # ---- kernels ---------------------------------------------------------------------------
+    log(f"  gui kernel launches: labeling {n_ccl} (resident {resident}), response {n_resp}, windows {n_win} for "
+        f"{dispatches} device-program dispatches")
+    if not (n_ccl == n_resp == resident == dispatches and n_win == 2 * dispatches and dispatches > 0):
+        raise AssertionError("gui: kernel launches do not match the dispatches")
+    if device.type == "cuda":
+        check_recorded_detect_kernels(inputs, (n_ccl, n_resp, n_win), "gui")
+    explorer_solves = pipeline.results[n_results0:]
+    if not explorer_solves or len(explorer_solves) != len(pipeline.solves) - n_solves0:
+        raise AssertionError(f"gui: {len(explorer_solves)} lm_solve calls for {len(pipeline.solves) - n_solves0} BA stages")
+    schur_solves = sum(s["iterations"] for s, r in zip(pipeline.solves[n_solves0:], explorer_solves) if r["solver"] == "schur")
+    log(f"  gui Schur kernel: {schur_extrinsics} launches on the Extrinsics tab ({len(extrinsic_solves)} constrained "
+        f"BA stages: gate closed), {schur_launches - schur_extrinsics} on the Explorer = its Schur solves "
+        f"{schur_solves} (solvers {[r['solver'] for r in explorer_solves]}, 'auto' on a preset of "
+        f"{explorer_solves[0]['n_points']} points)")
+    if schur_extrinsics != 0 or schur_launches - schur_extrinsics != schur_solves:
+        raise AssertionError("gui: Schur kernel launches do not match the Schur solves")
+    if device.type == "cuda":  # the kernel takes float32 blocks
+        errs, Pb = first_iteration_block_errors(device, pipeline.boot)
+        log(f"  gui: kernel schur_s_rhs on the Explorer bootstrap's first LM iteration (P = {Pb}): scaled max "
+            f"|kernel - plain| {errs} (rtol {BLOCK_RTOL}; a comparison launch, not counted)")
+        if not all(e <= BLOCK_RTOL for e in errs.values()):
+            raise AssertionError(f"gui: schur_s_rhs disagrees with its plain version on the Explorer's blocks: {errs}")
 
-        # ---- the card against the port's CPU run (not counted) ----------------------
-        clip = Path(tmp) / "clip" / "cam_0.mp4"
-        seen = sorted(set(points.sync_index[points.cam_id == 0].tolist()))[:WS_CLIP_FRAMES]  # sync = frame here
-        with FrameSource(ws.video_path("extrinsic", 0), 0, wanted_indices=set(seen), pixel_format=PixelFormat.GRAY) as src:
-            write_gray_video(clip, [pkt.frame for pkt in src], WS_FPS)
-        card = extract_image_points(clip, 0, CharucoTracker(board, device=device), progress=None)
-        t0 = time.perf_counter()
-        cpu = extract_image_points(clip, 0, CharucoTracker(board, device="cpu"), progress=None)
-        cpu_s = time.perf_counter() - t0
-        same = all(np.array_equal(getattr(card, c), getattr(cpu, c)) for c in ("sync_index", "object_id", "keypoint_id"))
-        gap = float(np.abs(card.img_xy - cpu.img_xy).max()) if same and len(card) else float("inf")
-        log(f"  card vs CPU on cam 0's first {len(seen)} extrinsic frames with the board: {len(card)} observations, "
-            f"max {gap:.2e} px (CPU {cpu_s:.1f} s)")
-        if not (same and gap < GPU_VS_CPU_ATOL_PX):
-            raise AssertionError("workspace: the card's extraction parts from the CPU's")
+    # ---- rates ------------------------------------------------------------------------------
+    cli_s = handoff["seconds"]
+    n_intr = WS_INTRINSIC_FRAMES * len(cams)
+    intr_extract_s = sum(b - a for a, b in spans.values())
+    log(f"  gui Cameras tab: intrinsic extraction {n_intr / intr_extract_s:.1f} frames/s with the display thread on "
+        f"({intr_extract_s:.2f} s for {n_intr} frames; the CLI's calibrate-intrinsics took {cli_s['calibrate-intrinsics']:.2f} s "
+        f"in all, the tab {sum(seconds[f'calibrate cam {c}'] for c in cams):.2f} s), device idle "
+        f"{100 * (1 - cam_busy / cam_wall):.1f} % ({cam_kernels} GPU kernels) [{smi_line}]")
+    log(f"  gui Extract tab: {handoff['extract_frames'] / seconds['extract']:.1f} frames/s against the CLI's "
+        f"{handoff['extract_frames'] / cli_s['extract']:.1f}; device idle {100 * (1 - ext_busy / ext_wall):.1f} % "
+        f"against the CLI's {100 * handoff['idle']:.1f} % ({ext_kernels} GPU kernels) [{smi_line}]")
+    log(f"  gui frames displayed {sum(v['displayed'] for v in shown.values())}, dropped {sum(dropped.values())}; "
+        f"peak device memory {peak / 2**20:.1f} MiB [{smi_line}]")
+    log("  gui seconds per action " + json.dumps({k: round(v, 3) for k, v in seconds.items()}) + f" [{smi_line}]")
+    win.close()
+    return (n_ccl, n_resp, n_win), schur_launches
 
-        try:
-            cli.main(["gui"])
-        except NotImplementedError as e:
-            if "item 26" not in str(e):
-                raise
-        else:
-            raise AssertionError("workspace: `gui` did not raise not_ported")
-        log("  seconds per step " + json.dumps({k: round(v, 3) for k, v in seconds.items()}))
-    return (n_ccl, n_resp, n_win), schur_launches, check_launches
+
+def _gui_calibrate_camera(app, act, cameras_tab, cid, calibrated, shown, dropped):
+    """Select camera cid in the Cameras tab and click its Calibrate, with the
+    undistortion preview on (through `calibrated`, the CLI run's camera);
+    pump until the panel reports. Fills shown[cid] (fx, frames displayed)
+    and dropped[cid]."""
+    cameras_tab.camera_list.select_cam_id(cid)
+    panel = cameras_tab._panels[cid]
+    started = {}
+
+    def click():
+        panel.run_btn.click()
+        if panel.presenter is None or panel.render_thread is None:
+            raise AssertionError(f"gui: camera {cid}'s Calibrate did not start: {panel.status_label.text()}")
+        started["presenter"], started["thread"] = panel.presenter, panel.render_thread
+        panel.render_thread.set_undistort(True, calibrated)
+
+    act(f"calibrate cam {cid}", click, lambda: panel.presenter is None)
+    rt = started["thread"]
+    if rt.isRunning() or rt.error is not None:
+        raise AssertionError(f"gui: camera {cid}'s render thread: running {rt.isRunning()}, error {rt.error!r}")
+    presenter = started["presenter"]
+    if presenter.output is None or panel.status_label.text().startswith("Error") or panel.render_error is not None:
+        raise AssertionError(f"gui: camera {cid}'s calibration failed: {panel.status_label.text()}")
+    shown[cid] = dict(fx=float(presenter.output.camera.matrix[0, 0]), displayed=rt.frames_rendered)
+    dropped[cid] = presenter.display_queue.dropped
 
 
 def main() -> int:
@@ -3747,14 +4104,19 @@ def main() -> int:
     log(f"vertical and sharded phase: {time.perf_counter() - t0:.2f} s")
     entry["launches"] += sharded_launches
     entry["launches_by_path"]["sharded"] = sharded_launches
-    t0 = time.perf_counter()
-    ws_launches, ws_schur, ws_checks = workspace_phase(device, smi_line)
-    log(f"workspace phase: {time.perf_counter() - t0:.2f} s")
-    entry["launches"] += ws_schur
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ws_") as tmp:
+        t0 = time.perf_counter()
+        ws_launches, ws_schur, ws_checks, handoff = workspace_phase(device, smi_line, tmp)
+        log(f"workspace phase: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        gui_launches, gui_schur = gui_phase(device, smi_line, handoff)
+        log(f"gui phase: {time.perf_counter() - t0:.2f} s")
+    entry["launches"] += ws_schur + gui_schur
     entry["launches_by_path"]["workspace"] = ws_schur
+    entry["launches_by_path"]["gui"] = gui_schur
     for i, e in enumerate(detect_entries):
         e["launches_by_path"] = ({"detection_slice": e["launches"]} | {path: n[i] for path, n in intr_launches.items()}
-                                 | {"markerless": 0, "sharded": 0, "workspace": ws_launches[i]})
+                                 | {"markerless": 0, "sharded": 0, "workspace": ws_launches[i], "gui": gui_launches[i]})
         e["launches"] = sum(e["launches_by_path"].values())
         e["launches_outside_main_paths"] = {f"workspace {check}": n[i] for check, n in ws_checks.items()}
         e["tracker_shapes"] = tracker_shapes[e["name"]]

@@ -191,15 +191,34 @@ def test_intrinsic_transitions_match_jax(intrinsic_video, monkeypatch, tmp_path)
 
 
 def test_intrinsic_display_queue_is_not_ported(intrinsic_video):
+    """The display queue is ported (the name is kept from when it raised):
+    given one, the run tees every tracked frame into it as the JAX presenter
+    does (caliscope_tpu/presenters/intrinsic.py:34-98) — host numpy frames
+    as read, their corners, the corners accumulated so far — ends with the
+    stop sentinel, and calibrates as without it."""
+    from caliscope_tpu_torch.gui.frame_render import make_display_queue
+    from caliscope_tpu_torch.media import FrameSource
+
     video, ch, _ = intrinsic_video
+    q = make_display_queue(maxsize=64)
     p = IntrinsicCalibrationPresenter(CameraData(0, (320, 240)), video, CharucoTracker(ch, device="cpu"),
-                                      display_queue=object(), device="cpu")
-    errors, states = [], []
-    p.error_occurred.connect(errors.append)
+                                      frame_step=1, display_queue=q, device="cpu")
+    states = []
     p.state_changed.connect(states.append)
     p.run(block=True)
-    _settle(states, "EXTRACTING")
-    assert p.state is IntrinsicCalibrationState.FAILED and "item 26" in errors[0]
+    _settle(states, "CALIBRATING")
+    assert p.state is IntrinsicCalibrationState.CALIBRATED and p.output.report.frames_used > 0
+    items = [q.get_nowait() for _ in range(q.qsize())]
+    assert items[-1] is None and q.dropped == 0
+    with FrameSource(video, 0, pixel_format=CharucoTracker(ch, device="cpu").pixel_format) as src:
+        frames = [pkt.frame for pkt in src]
+    assert len(items) - 1 == len(frames) == 6
+    for item, frame in zip(items, frames):
+        assert isinstance(item.frame, np.ndarray) and np.array_equal(item.frame, frame)
+    current = [it.current_xy for it in items[:-1]]
+    np.testing.assert_array_equal(items[-2].accumulated_xy, np.concatenate(current))
+    rows = p._points.img_xy
+    np.testing.assert_array_equal(np.concatenate(current), rows)
 
 
 def test_processing_presenters_match_jax(tmp_path, monkeypatch):

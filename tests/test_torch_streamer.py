@@ -201,6 +201,13 @@ def test_pause_end_behavior_holds(tmp_path):
         except Empty:
             pass
     assert s._pause.is_set(), "end of stream should flip to paused"
+    # the worker publishes the last frame before it pauses: drop what the loop
+    # above left queued, so the next packet is the first one after the seek
+    while True:
+        try:
+            q.get_nowait()
+        except Empty:
+            break
     s.seek(0)
     s.play()
     got = _drain(q, 1, timeout=5)

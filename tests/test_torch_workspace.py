@@ -18,7 +18,8 @@ Held:
   capture volume has the port's RMSE (1e-9), its reconstruction the port's
   points (1e-9 m);
 - the device travels: without --device the CLI asks for CUDA and raises
-  here, `gui` raises not_ported naming item 26;
+  here, `gui` too, and `gui --device cpu` opens the project in the
+  headless GUI;
 - logging and the workspace watcher behave as the JAX package's.
 """
 
@@ -29,6 +30,7 @@ import dataclasses
 import io
 import logging
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -44,12 +46,11 @@ from caliscope_tpu.trackers import CharucoTracker as JaxCharucoTracker
 from caliscope_tpu.workspace import Workspace as JaxWorkspace
 
 from caliscope_tpu_torch import __main__ as cli
-from caliscope_tpu_torch.api import extract_image_points_multicam
+from caliscope_tpu_torch import api as port_api
 from caliscope_tpu_torch.logger import setup_logging
 from caliscope_tpu_torch.media.video import write_gray_video
 from caliscope_tpu_torch.observations import WorldPoints
 from caliscope_tpu_torch.repositories import TargetRouting
-from caliscope_tpu_torch.trackers import CharucoTracker
 from caliscope_tpu_torch.workspace import StepStatus, Workspace, WorkspaceWatcher
 from torch_pose_common import one_torch_thread  # noqa: F401  (a fixture, used by name)
 
@@ -104,6 +105,14 @@ def workflow(tmp_path_factory):
     __import__("torch").set_num_threads(1)
     root = tmp_path_factory.mktemp("ws") / "proj"
     printed = {}
+    extracted = []  # each multicam extraction's points: the last is the recording's, for the JAX reconstruction
+    multicam = port_api.extract_image_points_multicam
+
+    def recorded(*args, **kwargs):
+        extracted.append(multicam(*args, **kwargs))
+        return extracted[-1]
+
+    port_api.extract_image_points_multicam = recorded
     try:
         with _quiet_cli():
             printed["init"] = _run(cli.main, "init", root, "--device", "cpu")
@@ -116,7 +125,9 @@ def workflow(tmp_path_factory):
                                 ("reconstruct", "rec0"), ("status",)):
                 printed[step] = _run(cli.main, step, root, *args, "--device", "cpu")
     finally:
+        port_api.extract_image_points_multicam = multicam
         __import__("torch").set_num_threads(n)
+    printed["recording_points"] = extracted[-1]
     return root, ws, cams, printed
 
 
@@ -176,20 +187,16 @@ def test_the_jax_package_reads_the_workspace(workflow):
 
 
 def test_capture_volume_and_reconstruction_match_the_jax_package(workflow, tmp_path):
-    root, ws, cams, _ = workflow
+    root, ws, cams, printed = workflow
     volume = ws.capture_volume.load(device="cpu")
     jvolume = JaxWorkspace(root).capture_volume.load()
     rmse = volume.reprojection_report.overall_rmse
     assert rmse < 1.0
     assert jvolume.reprojection_report.overall_rmse == pytest.approx(rmse, rel=1e-9)
-    # the recording's points through the JAX package's reconstruction: the same files, the same points
-    rec = {c: root / "recordings" / "rec0" / f"cam_{c}.mp4" for c in CAMS}
-    n = __import__("torch").get_num_threads()
-    __import__("torch").set_num_threads(1)
-    try:
-        ip = extract_image_points_multicam(rec, CharucoTracker(cs.ws_board(), device="cpu"), progress=None)
-    finally:
-        __import__("torch").set_num_threads(n)
+    # the points the reconstruct step extracted from the recording, through the
+    # JAX package's reconstruction: the same files, the same points
+    ip = printed["recording_points"]
+    assert sorted(set(ip.cam_id.tolist())) == list(CAMS) and len(ip) > 0
     jip = JaxImagePoints(*(getattr(ip, c) for c in ("sync_index", "cam_id", "object_id", "keypoint_id", "img_xy", "obj_loc", "frame_time")))
     out = tmp_path / "CHARUCO"
     jax_reconstruct_xyz(jip, JaxCameraArray.from_toml(ws.cameras.path), JaxCharucoTracker(JaxCharuco(rows=5, columns=7, square_size_m=0.09)), out)
@@ -202,7 +209,7 @@ def test_capture_volume_and_reconstruction_match_the_jax_package(workflow, tmp_p
     assert len(got) > 0
 
 
-def test_device_travels_and_gui_is_not_ported(workflow):
+def test_device_travels_and_gui_is_not_ported(workflow, monkeypatch, tmp_path):
     root, *_ = workflow
     assert Workspace(root, device="cpu").make_extrinsic_tracker().device.type == "cpu"
     if __import__("torch").cuda.is_available():
@@ -211,8 +218,36 @@ def test_device_travels_and_gui_is_not_ported(workflow):
         Workspace(root).make_intrinsic_tracker()
     with _quiet_cli(), pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["extract", str(root)])
-    with pytest.raises(NotImplementedError, match="item 26"):
-        cli.main(["gui"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["gui", str(root)])
+    # `gui --device cpu` opens the project and runs the headless event loop
+    # until the application quits (the name is kept from when `gui` raised)
+    import threading
+
+    from caliscope_tpu_torch.gui import headless, main_window
+
+    headless.QApplication._reset_for_tests()
+    monkeypatch.setattr(main_window, "APP_SETTINGS_PATH", tmp_path / "settings.toml")
+    opened = []
+
+    def quit_when_open():
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            app = headless.QApplication.instance()
+            if app is not None and (tmp_path / "settings.toml").exists():
+                opened.append(main_window.load_app_settings(tmp_path / "settings.toml"))
+                app.quit()
+                return
+            time.sleep(0.01)
+
+    stopper = threading.Thread(target=quit_when_open)
+    stopper.start()
+    try:
+        assert cli.main(["gui", str(root), "--device", "cpu"]) == 0
+    finally:
+        stopper.join()
+        headless.QApplication._reset_for_tests()
+    assert opened == [{"recent_projects": [str(root)]}]
 
 
 def test_help_lists_the_jax_commands():
