@@ -1,10 +1,11 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and library shims.
 
-Each kernel is one `csrc/<name>.cu` with a plain C interface. At first use
-it is compiled with nvcc for sm_90a into a shared library under
+Each is one `csrc/<name>.cu` with a plain C interface. At first use it is
+compiled with nvcc for sm_90a into a shared library under
 `caliscope_tpu_torch/_build/` (named by a hash of the source and the flags,
-so a changed source is rebuilt and an unchanged one is reused) and loaded
-with ctypes. nvcc is looked for under CUDA_HOME / CUDA_PATH, on PATH, and
+link flags included, so a changed source is rebuilt and an unchanged one is
+reused) and loaded with ctypes. A source that calls a CUDA library (the
+nvJPEG shim) names it in LINK_FLAGS. nvcc is looked for under CUDA_HOME / CUDA_PATH, on PATH, and
 under /usr/local/cuda. Nothing here runs when the package is imported.
 """
 
@@ -28,8 +29,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNELS = ("schur_s_rhs", "ccl", "corner_response", "extract_windows")
+# every source under csrc/: the kernels and the shims over CUDA's libraries
+SOURCES = KERNELS + ("nvjpeg_decode",)
+LINK_FLAGS = {"nvjpeg_decode": ("-lnvjpeg",)}
 
-# kernel name -> nvcc's output and the seconds of the build this process ran;
+# source name -> nvcc's output and the seconds of the build this process ran;
 # "" and 0.0 for a library that was found already built
 build_logs: dict[str, str] = {}
 build_seconds: dict[str, float] = {}
@@ -61,7 +65,8 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     source = source_path(name)
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join(NVCC_FLAGS + LINK_FLAGS.get(name, ()))
+    digest = hashlib.sha256(source.read_bytes() + flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -88,7 +93,7 @@ def _build_locked(name: str) -> Path:
     tmp = BUILD_DIR / f".{out.name}.{os.getpid()}.{threading.get_ident()}.tmp"
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))],
+        [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name)), *LINK_FLAGS.get(name, ())],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     build_seconds[name] = time.perf_counter() - t0
@@ -100,8 +105,8 @@ def _build_locked(name: str) -> Path:
     return out
 
 
-def build_all(names=KERNELS) -> dict[str, Path]:
-    """Build several kernels at once: one nvcc process each, all started
+def build_all(names=SOURCES) -> dict[str, Path]:
+    """Build several sources at once: one nvcc process each, all started
     together."""
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         return dict(zip(names, pool.map(build, names)))

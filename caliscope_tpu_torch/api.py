@@ -189,7 +189,8 @@ def extract_image_points(
         prog.on_video_start(cam_id, total)
 
         rows: list[dict] = []
-        with FrameSource(video_path, cam_id, wanted_indices=wanted, pixel_format=tracker.pixel_format) as src:
+        with FrameSource(video_path, cam_id, wanted_indices=wanted, pixel_format=tracker.pixel_format,
+                         device=tracker.device) as src:
             i = 0
             for raw, pkt in _iter_tracked_batched(src, tracker, cam_id, rotation_count):
                 row = _packet_rows(raw.frame_index, cam_id, raw.frame_time, pkt)
@@ -256,7 +257,8 @@ def extract_image_points_multicam(
             sync_for = {fi: si for si, fi in work}
             rows = []
             prog.on_video_start(cam_id, len(work))
-            with FrameSource(path, cam_id, wanted_indices=set(sync_for), pixel_format=tracker.pixel_format) as src:
+            with FrameSource(path, cam_id, wanted_indices=set(sync_for), pixel_format=tracker.pixel_format,
+                             device=tracker.device) as src:
                 processed = 0
                 for raw, pkt in _iter_tracked_batched(src, tracker, cam_id, rotations.get(cam_id, 0)):
                     si = sync_for[raw.frame_index]

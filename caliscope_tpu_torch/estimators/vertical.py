@@ -193,6 +193,6 @@ def estimate_vertical(
     for cid, video in videos.items():
         props = read_video_properties(video)
         wanted = set(np.linspace(0, max(props.frame_count - 1, 0), n_sample_frames, dtype=int).tolist())
-        with FrameSource(video, cid, wanted_indices=wanted) as src:
+        with FrameSource(video, cid, wanted_indices=wanted, device=device) as src:
             frames[cid] = [pkt.frame for pkt in src]
     return estimate_vertical_from_frames(frames, K_by_camera, models_dir, device=device, dtype=dtype)

@@ -78,7 +78,7 @@ class CameraThumbnailCard(QWidget):
         try:
             from caliscope_tpu_torch.media.video import FrameSource
 
-            src = FrameSource(path, self._cam_id)
+            src = FrameSource(path, self._cam_id, device=self._ws.device)
             pkt = src.next_frame()
             src.close()
             if pkt is None:

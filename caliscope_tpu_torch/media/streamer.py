@@ -37,10 +37,12 @@ class FramePacketStreamer:
         fps_override: Optional[float] = None,
         queue_depth: int = 4,
         end_behavior: str = "stop",  # 'stop' | 'pause' | 'loop' at end of video
+        device=None,  # where compressed frames decode: the tracker's device when None
     ):
         self.video_path = Path(video_path)
         self.cam_id = cam_id
         self.tracker = tracker
+        self.device = device if device is not None else getattr(tracker, "device", None)
         props = read_video_properties(self.video_path)
         self.frame_count = props.frame_count
         self._native_fps = props.fps
@@ -158,7 +160,7 @@ class FramePacketStreamer:
     # ---- worker -------------------------------------------------------------
     def _open_source(self, start: int) -> FrameSource:
         pf = self.tracker.pixel_format if self.tracker else PixelFormat.BGR
-        src = FrameSource(self.video_path, self.cam_id, pixel_format=pf)
+        src = FrameSource(self.video_path, self.cam_id, pixel_format=pf, device=self.device)
         # forward-only: skip to start
         skipped = 0
         while skipped < start:

@@ -1,19 +1,27 @@
-"""Host-side video decode: forward-only FrameSource + metadata probe + overlay
+"""Video decode: forward-only FrameSource + metadata probe + overlay
 writer.
 
 Port of caliscope_tpu/media/video.py (reference
 src/caliscope/recording/frame_source.py:28-222, video_utils.py
 read_video_properties:26, overlay_video_writer.py OverlayVideoWriter:27).
 
-The JAX package decodes through OpenCV's FFmpeg. The port decodes with the
-container reader of `media/quicktime.py`, for the recordings that need no
-codec library: uncompressed 8-bit QuickTime video (grey, RGB or BGR) under
-any file name (the workspace's cam_N.mp4 names included). A compressed file
-raises CalibrationError naming its codec and the ffmpeg command that
-converts it. Frames are read forward from one open file; the GRAY and BGR
-outputs equal OpenCV's `read()` and `cvtColor(BGR2GRAY)` of the same file
-bit for bit. Decode stays on the host; frames reach the device as batched
-uint8 tensors through the extraction pipelines.
+The JAX package decodes through OpenCV's FFmpeg on the host. The port
+locates samples with its own container reader (`media/quicktime.py`) and
+decodes them by codec:
+
+- uncompressed 8-bit QuickTime video (grey, RGB or BGR) is read on the host
+  on every device; its GRAY and BGR frames equal OpenCV's `read()` and
+  `cvtColor(BGR2GRAY)` of the same file bit for bit;
+- MJPEG decodes on the CUDA device through nvJPEG (`media/nvjpeg.py`), or
+  with `device="cpu"` through the numpy decoder (`media/jpeg.py`);
+- MPEG-4 Part 2 and H.264 decode on the CUDA device's NVDEC engines
+  (`media/nvdec.py`) and on no other device.
+
+A compressed frame is turned into BGR or grey as the JAX package's OpenCV
+would (`media/colour.py`, within 2 grey levels of swscale) on the device
+that decoded it, and reaches the caller as one numpy frame (one
+device-to-host copy). Any other codec raises CalibrationError naming it
+and the ffmpeg command that converts the file.
 """
 
 from __future__ import annotations
@@ -25,22 +33,19 @@ from pathlib import Path
 from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
-from caliscope_tpu_torch.media.quicktime import RawQuickTimeWriter, read_track
+from caliscope_tpu_torch.exceptions import CalibrationError
+from caliscope_tpu_torch.media import colour
+from caliscope_tpu_torch.media.quicktime import CODEC_NAMES, RawQuickTimeWriter, conversion_hint, read_track
 from caliscope_tpu_torch.packets import FramePacket, PixelFormat
 
 logger = logging.getLogger(__name__)
 
-# OpenCV's fixed-point BGR -> gray weights (15 fractional bits), which
-# cvtColor(COLOR_BGR2GRAY) applies to 8-bit frames: (b*3735 + g*19235 +
-# r*9798 + 16384) >> 15, equal to OpenCV 5's on all 2^24 colours.
-_GRAY_B, _GRAY_G, _GRAY_R, _GRAY_SHIFT = 3735, 19235, 9798, 15
-
-
 def bgr_to_gray(bgr: np.ndarray) -> np.ndarray:
-    """(H, W, 3) uint8 BGR -> (H, W) uint8, as cv2.cvtColor(BGR2GRAY)."""
-    b, g, r = (bgr[..., i].astype(np.uint32) for i in range(3))
-    return ((b * _GRAY_B + g * _GRAY_G + r * _GRAY_R + (1 << (_GRAY_SHIFT - 1))) >> _GRAY_SHIFT).astype(np.uint8)
+    """(H, W, 3) uint8 BGR -> (H, W) uint8, as cv2.cvtColor(BGR2GRAY)
+    (OpenCV 5's 15-bit weights; equal to it on all 2^24 colours)."""
+    return colour.bgr_to_gray(torch.from_numpy(np.ascontiguousarray(bgr))).numpy()
 
 
 @dataclass(frozen=True)
@@ -64,13 +69,44 @@ def read_video_properties(path: Path | str) -> VideoProperties:
     return VideoProperties(path, track.width, track.height, track.fps or 30.0, track.frame_count)
 
 
+# JPEG frames nvJPEG decodes in one call
+JPEG_BATCH = 8
+
+
+def _needed_samples(track, wanted: Optional[set[int]]) -> np.ndarray:
+    """(n,) bool over decode order: the samples a decode of the wanted
+    frames must read, each wanted sample and, on an inter-coded track, the
+    samples from the last sync sample at or before it."""
+    n = track.frame_count
+    if wanted is None:
+        return np.ones(n, bool)
+    shown = np.zeros(n, bool)
+    picks = np.fromiter((i for i in wanted if 0 <= i < n), np.int64)
+    shown[picks] = True
+    hit = shown[track.display]  # by decode position
+    if track.intra_only:
+        return hit
+    pos = np.arange(n)
+    last_sync = np.maximum.accumulate(np.where(track.sync, pos, 0))
+    edges = np.zeros(n + 1, np.int64)
+    np.add.at(edges, last_sync[hit], 1)
+    np.add.at(edges, pos[hit] + 1, -1)
+    return np.cumsum(edges[:n]) > 0
+
+
 class FrameSource:
     """Forward-only reader yielding FramePackets.
 
-    wanted_indices: frames outside the set are skipped without a read
-    (uncompressed frames are independent, so no decode is needed to pass
-    them). GRAY output of a colour file converts once per wanted frame.
-    Thread-safe: one internal lock.
+    device: where compressed frames decode, CUDA unless the caller names
+    another; MJPEG also decodes on the CPU, MPEG-4 Part 2 and H.264 only on
+    CUDA. Uncompressed files are host reads on every device.
+
+    wanted_indices: frames outside the set are skipped. An uncompressed or
+    intra-only track (every sample a sync sample: MJPEG, all-IDR H.264) is
+    not read there at all; an inter-coded track decodes, for each wanted
+    frame, from the last sync sample at or before it, and converts only the
+    wanted frames. GRAY output of a colour file converts once per wanted
+    frame. Thread-safe: one internal lock.
     """
 
     def __init__(
@@ -83,21 +119,60 @@ class FrameSource:
         frame_times: Optional[dict[int, float]] = None,
         fps_fallback: float = 30.0,
         decode_threads: Optional[int] = None,
+        device=None,
     ):
         """decode_threads is the reference's per-stream decoder thread budget
-        (frame_source.py:28-76); an uncompressed frame is a read, not a
-        decode, so it does nothing here and is kept for the callers'
-        signature."""
+        (frame_source.py:28-76); the port's decoders are the card's engines
+        or one host thread, so it does nothing here and is kept for the
+        callers' signature."""
         self.path = Path(path)
         self.cam_id = cam_id
         self.pixel_format = pixel_format
         self.wanted_indices = wanted_indices
         self._frame_times = frame_times
-        self._track = read_track(self.path)
-        self._fps = self._track.fps or fps_fallback
+        self._track = t = read_track(self.path)
+        self._fps = t.fps or fps_fallback
         self._next_index = 0
         self._lock = threading.Lock()
+        self.device = None if t.codec == "raw" else self._decode_device(device)
+        self._needed = _needed_samples(t, wanted_indices)  # by decode position
+        self._fed = 0  # next sample, in decode order, the decoder has not been given
+        self._flushed = False  # NVDEC's parser was told the stream ended
+        self._ready: dict[int, np.ndarray] = {}  # decoded, converted wanted frames by index
+        self._nvjpeg = self._nvdec = None
         self._f = open(self.path, "rb")
+        try:
+            if self.device is not None and self.device.type == "cuda":
+                if t.codec == "jpeg":
+                    from caliscope_tpu_torch.media.nvjpeg import NvJpegDecoder
+
+                    self._nvjpeg = NvJpegDecoder(self.device)
+                else:
+                    from caliscope_tpu_torch.media.nvdec import NvdecDecoder
+
+                    self._nvdec = NvdecDecoder(t.codec, t.extradata, (t.width, t.height), self.device,
+                                               nal_length_size=t.nal_length_size, wanted=wanted_indices)
+        except BaseException:
+            self._f.close()
+            raise
+
+    def _decode_device(self, device) -> torch.device:
+        t, name = self._track, CODEC_NAMES[self._track.codec]
+        dev = torch.device("cuda" if device is None else device)
+        if dev.type == "cpu" and t.codec != "jpeg":
+            raise CalibrationError(
+                f"{self.path}: {name} video decodes only on the CUDA device (NVDEC), not on the CPU; "
+                f"decode it on the card, or convert with: {conversion_hint(self.path)}"
+            )
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            also = " or pass device='cpu'" if t.codec == "jpeg" else ""
+            raise CalibrationError(
+                f"{self.path}: {name} video decodes on the CUDA device and none is available; "
+                f"run on a GPU{also}, or convert with: {conversion_hint(self.path)}"
+            )
+        if dev.type not in ("cpu", "cuda"):
+            raise CalibrationError(f"{self.path}: {name} video does not decode on {dev}")
+        return dev
 
     @classmethod
     def from_path(cls, path: Path | str, cam_id: int = 0, **kwargs) -> "FrameSource":
@@ -107,6 +182,14 @@ class FrameSource:
         if self._frame_times is not None and index in self._frame_times:
             return self._frame_times[index]
         return index / self._fps
+
+    def _sample(self, d: int) -> bytes:
+        t = self._track
+        self._f.seek(int(t.offsets[d]))
+        data = self._f.read(int(t.sizes[d]))
+        if len(data) != int(t.sizes[d]):
+            raise EOFError(f"{self.path}: sample {d} is cut short")
+        return data
 
     def _read(self, index: int) -> np.ndarray:
         t = self._track
@@ -126,6 +209,57 @@ class FrameSource:
             return bgr_to_gray(bgr)
         return np.ascontiguousarray(bgr)
 
+    def _convert(self, y, u, v, full_range: bool) -> np.ndarray:
+        return colour.yuv_to_frame(y, u, v, full_range, self.pixel_format is PixelFormat.GRAY).cpu().numpy()
+
+    def _decode_more(self) -> bool:
+        """Decode the next needed samples into `_ready`. False once every
+        needed sample has been decoded (the decoder flushed)."""
+        t, needed = self._track, self._needed
+        ahead = np.flatnonzero(needed[self._fed :]) + self._fed
+        if len(ahead) == 0:
+            if self._nvdec is not None and not self._flushed:
+                self._nvdec.end()
+                self._flushed = True
+                self._collect_nvdec()
+            return False
+        if t.codec == "jpeg":
+            batch = ahead[: JPEG_BATCH if self._nvjpeg is not None else 1].tolist()
+            data = [self._sample(d) for d in batch]
+            if self._nvjpeg is not None:
+                planes = self._nvjpeg.decode(data)
+                for j, d in enumerate(batch):
+                    y, *uv = (p[j] for p in planes)
+                    self._ready[int(t.display[d])] = self._convert(y, *(uv or (None, None)), True)
+            else:
+                from caliscope_tpu_torch.media import jpeg
+
+                img = jpeg.decode(data[0])
+                y, *uv = (torch.from_numpy(p) for p in img.planes)
+                self._ready[int(t.display[batch[0]])] = self._convert(y, *(uv or (None, None)), True)
+            self._fed = batch[-1] + 1
+            return True
+        d = int(ahead[0])
+        self._nvdec.feed(self._sample(d), int(t.display[d]))
+        self._fed = d + 1
+        self._collect_nvdec()
+        return True
+
+    def _collect_nvdec(self) -> None:
+        dec = self._nvdec
+        for index in sorted(dec.frames):
+            y, uv = dec.pop(index)
+            self._ready[index] = self._convert(y, uv[..., 0], uv[..., 1], dec.full_range)
+
+    def _frame(self, index: int) -> np.ndarray:
+        if self._track.codec == "raw":
+            return self._read(index)
+        while index not in self._ready:
+            if not self._decode_more():
+                if index not in self._ready:
+                    raise CalibrationError(f"{self.path}: frame {index} did not decode")
+        return self._ready.pop(index)
+
     def next_frame(self) -> Optional[FramePacket]:
         """Next wanted frame, or None at end of stream."""
         with self._lock:
@@ -138,7 +272,7 @@ class FrameSource:
                     cam_id=self.cam_id,
                     frame_index=idx,
                     frame_time=self._time_for(idx),
-                    frame=self._read(idx),
+                    frame=self._frame(idx),
                     pixel_format=self.pixel_format,
                 )
             return None
@@ -153,6 +287,11 @@ class FrameSource:
     def close(self) -> None:
         with self._lock:
             self._f.close()
+            for dec in (self._nvdec, self._nvjpeg):
+                if dec is not None:
+                    dec.close()
+            self._nvdec = self._nvjpeg = None
+            self._ready.clear()
 
     def __enter__(self) -> "FrameSource":
         return self

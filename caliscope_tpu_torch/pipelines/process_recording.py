@@ -83,6 +83,7 @@ def process_synchronized_recording(
             pixel_format=tracker.pixel_format,
             # reference's per-stream decode budget (process_synchronized_recording.py:76)
             decode_threads=max(1, (os.cpu_count() or 4) // max(len(cam_ids), 1)),
+            device=tracker.device,
         )
         cam = cameras.get(cid)
         rot = cam.rotation_count if cam is not None else 0

@@ -23,6 +23,9 @@ logger = logging.getLogger(__name__)
 
 
 class Tracker(ABC):
+    # where the tracker runs, and the videos it reads decode: CUDA when None
+    device = None
+
     @property
     def name(self) -> str:
         """Tracker name, used for artifact file naming (xy_{NAME}.csv)."""

@@ -8,8 +8,9 @@ repository checkout beside this file; it exits non-zero without them and
 on any failed check. Phases:
 
 1. Versions, and the card's name and power limit as nvidia-smi reports them.
-2. Build all four kernels of the port from the checkout's sources (one nvcc
-   process each, started together, into caliscope_tpu_torch/_build/).
+2. Build all four kernels of the port and its nvJPEG shim from the
+   checkout's sources (one nvcc process each, started together, into
+   caliscope_tpu_torch/_build/).
 3. Kernel phases: each kernel against its plain PyTorch version on the card,
    at the main paths' shapes (and ragged ones), with its times (CUDA
    events, median of warm repetitions), a one-call PyTorch yardstick where
@@ -145,7 +146,27 @@ on any failed check. Phases:
    Prints seconds a GUI action, extraction frames/s with the display thread
    on against the CLI's, the device's idle share, frames displayed and
    dropped, peak memory.
-12. A `kernels` JSON line (each kernel with its launches on every path,
+12. Decode: compressed recordings on the card. (a) NVDEC's answer
+   (cuvidGetDecoderCaps) for H.264, MPEG-4 Part 2, HEVC and JPEG at 8-bit
+   4:2:0; (b) the committed clips under tests/data/video/: the MJPEG board
+   clip through nvJPEG against the port's numpy decoder (within 2 grey
+   levels, GRAY; BGR reported) and the tracker's corners on both (99 % of
+   them found within 0.05 px), the mp4v clip through NVDEC against OpenCV's
+   frames (2 grey levels, the same frames when decoded from the sync
+   samples alone) or, where the caps refuse MPEG-4, FrameSource raising
+   with their answer; (c) the workspace phase's extrinsic videos (4 cameras
+   x 96 frames of 1280x720) written again as lossless I_PCM H.264 and as
+   MJPEG (quality 100), gated on every H.264 luma plane NVDEC gives back
+   equal to the luma written, or, where the caps refuse H.264, on
+   FrameSource and the extraction raising with their answer; on the MJPEG
+   frames within 2 grey levels of the raw ones; and on
+   api.extract_image_points_multicam over the compressed copies against
+   the same call on the raw videos (99 % of its rows found within 0.05 px;
+   the distances' median, 99th percentile and largest printed),
+   kernels 2-4 launched as dispatched and equal to their plain versions at
+   every input. Prints decode frames/s and MB/s a camera, extraction
+   frames/s, the device's idle share and peak memory.
+13. A `kernels` JSON line (each kernel with its launches on every path,
    `launches_by_path`), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -544,7 +565,7 @@ def kernel_phase(device, peaks):
         "name": "schur_s_rhs",
         "route": "cuda",
         "source": "caliscope_tpu_torch/csrc/schur_s_rhs.cu",
-        "replaces": "caliscope_tpu/solvers/pallas_schur.py:132",
+        "replaces": "caliscope_tpu/solvers/pallas_schur.py:146",
         "launches": None,  # filled from the slice phase
         "max_abs_err": err,
         "ms": ms,
@@ -3680,6 +3701,284 @@ def workspace_phase(device, smi_line, tmp):
 
 
 # ---------------------------------------------------------------------------
+# Decode: compressed recordings from the container to the tracker
+# ---------------------------------------------------------------------------
+
+DECODE_DIR = ROOT / "tests" / "data" / "video"
+DECODE_CODECS = ("h264", "mpeg4", "hevc", "jpeg")
+DECODE_MAX_GREY = 2  # decoders and colour conversions against each other (tests/test_torch_decode.py)
+DECODE_CORNER_PX = 0.05
+DECODE_MIN_ROWS = 0.99
+DECODE_JPEG_QUALITY = 100
+DECODE_GOP = 12
+DECODE_WORKERS = 8
+
+
+def decode_copy_video(task):
+    """Write a raw grey workspace video again, compressed: "h264" as the
+    port's lossless I_PCM H.264 (limited range, an IDR frame every
+    DECODE_GOP), "mjpeg" as its baseline grey MJPEG at DECODE_JPEG_QUALITY.
+    task = (source, destination, kind). Returns the bytes written and each
+    frame's luma CRC-32 (H.264) or [] (MJPEG). Runs in a worker process."""
+    import zlib
+
+    from caliscope_tpu_torch.media.h264_pcm import H264PcmWriter, luma_from_gray
+    from caliscope_tpu_torch.media.mjpeg_writer import MjpegWriter
+    from caliscope_tpu_torch.media.video import FrameSource, read_video_properties
+    from caliscope_tpu_torch.packets import PixelFormat
+
+    src, dst, kind = task
+    props = read_video_properties(src)
+    crcs = []
+    if kind == "h264":
+        writer = H264PcmWriter(dst, props.size, props.fps, gop=DECODE_GOP)
+    else:
+        writer = MjpegWriter(dst, props.size, props.fps, DECODE_JPEG_QUALITY)
+    with FrameSource(src, 0, pixel_format=PixelFormat.GRAY) as frames, writer as w:
+        for pkt in frames:
+            if kind == "h264":
+                luma = luma_from_gray(pkt.frame, False)
+                crcs.append(zlib.crc32(luma.tobytes()))
+                w.write(luma)
+            else:
+                w.write(pkt.frame)
+    return Path(dst).stat().st_size, crcs
+
+
+def _matched_rows(got, want):
+    """The rows of `want` (an ImagePoints) that `got` holds too, by (sync
+    index, camera, keypoint): (the share of want's rows that `got` holds
+    within DECODE_CORNER_PX, and the 50th, 99th and 100th percentiles of
+    the img_xy distance over the rows both hold)."""
+    import numpy as np
+
+    def keyed(ip):
+        return {(int(s), int(c), int(k)): xy for s, c, k, xy in zip(ip.sync_index, ip.cam_id, ip.keypoint_id, ip.img_xy)}
+
+    g, w = keyed(got), keyed(want)
+    gaps = np.array([float(np.abs(g[k] - w[k]).max()) for k in w if k in g])
+    if len(gaps) == 0:
+        return 0.0, (float("inf"),) * 3
+    return float((gaps <= DECODE_CORNER_PX).sum()) / len(w), tuple(float(q) for q in np.percentile(gaps, [50, 99, 100]))
+
+
+def _corner_gap(tracker, frames, reference):
+    """The tracker on `frames` against the tracker on `reference` (the same
+    views decoded otherwise): (the share of the reference's corners found
+    within DECODE_CORNER_PX, the largest distance among those found in
+    both, the reference's corners)."""
+    import numpy as np
+
+    got, want = tracker.get_points_batch(np.stack(frames)), tracker.get_points_batch(np.stack(reference))
+    close = total = 0
+    gap = 0.0
+    for g, w in zip(got, want):
+        at = {int(k): xy for k, xy in zip(g.keypoint_id, g.img_loc)}
+        total += len(w)
+        for k, xy in zip(w.keypoint_id, w.img_loc):
+            if int(k) in at:
+                d = float(np.abs(at[int(k)] - xy).max())
+                close += d <= DECODE_CORNER_PX
+                gap = max(gap, d)
+    return close / max(total, 1), gap, total
+
+
+def decode_phase(device, smi_line, root, tmp):
+    """Compressed video on the card: (a) NVDEC's answer for four codecs;
+    (b) the committed clips under tests/data/video/ (MJPEG through nvJPEG
+    against the numpy decoder, mp4v through NVDEC against OpenCV's frames or
+    raising as the caps say, the tracker on both); (c) the workspace cell's
+    extrinsic videos (4 cameras x 96 frames of 1280x720) written again as
+    I_PCM H.264 and as MJPEG, decoded and extracted through
+    api.extract_image_points_multicam against the raw videos. Returns the
+    (ccl, response, windows) launches of (c)'s compressed extraction, the
+    phase's main path, and {check: launches} of the runs it is held to."""
+    import multiprocessing
+    import zlib
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from caliscope_tpu_torch.api import extract_image_points_multicam
+    from caliscope_tpu_torch.exceptions import CalibrationError
+    from caliscope_tpu_torch.media import FrameSource, nvdec
+    from caliscope_tpu_torch.media.nvjpeg import NvJpegDecoder
+    from caliscope_tpu_torch.media.quicktime import read_track
+    from caliscope_tpu_torch.packets import PixelFormat
+    from caliscope_tpu_torch.trackers import CharucoTracker
+
+    log(f"decode phase on {smi_line}")
+    board = ws_board()
+    checks = {}
+
+    def frames_of(path, fmt=PixelFormat.GRAY, dev=device, wanted=None):
+        with FrameSource(path, 0, pixel_format=fmt, device=dev, wanted_indices=wanted) as src:
+            return {p.frame_index: p.frame for p in src}
+
+    def refused(path, codec, run=None):
+        """The card's NVDEC refuses `codec`: opening `path`, and `run` when
+        given, must raise CalibrationError carrying the caps' answer."""
+        for call in (lambda: FrameSource(path, 0, device=device), run):
+            if call is None:
+                continue
+            try:
+                call()
+            except CalibrationError as e:
+                if f"refuses {codec}" not in str(e) or caps[codec].get("error", "supported") not in str(e):
+                    raise AssertionError(f"decode: {path.name} raised without the caps' answer: {e}") from e
+                log(f"  {path.name}: raises as the caps say: {str(e)[:200]}")
+            else:
+                raise AssertionError(f"decode: the caps refuse {codec} but {path.name} decoded")
+
+    # (a) ---------------------------------------------------------------------
+    caps = {c: nvdec.decoder_caps(c, device) for c in DECODE_CODECS}
+    for c, answer in caps.items():
+        log(f"  NVDEC {c} at 8-bit 4:2:0: {json.dumps(answer)} ({smi_line})")
+
+    # (b) ---------------------------------------------------------------------
+    t0 = time.perf_counter()
+    mj = DECODE_DIR / "board_mjpeg.mov"
+    backend = NvJpegDecoder(device).backend
+    worst = {}
+    for fmt in (PixelFormat.GRAY, PixelFormat.BGR):
+        card, cpu = frames_of(mj, fmt), frames_of(mj, fmt, dev="cpu")
+        if sorted(card) != sorted(cpu) or not card:
+            raise AssertionError(f"decode: {mj.name} gives frames {sorted(card)} on the card, {sorted(cpu)} on the CPU")
+        worst[fmt.name] = max(int(np.abs(card[i].astype(int) - cpu[i]).max()) for i in card)
+    log(f"  {mj.name}: nvJPEG ({backend}) against the numpy decoder, {len(card)} frames of 1280x720: largest "
+        f"difference {worst['GRAY']} grey levels, {worst['BGR']} in BGR ({smi_line})")
+    if worst["GRAY"] > DECODE_MAX_GREY:
+        raise AssertionError(f"decode: nvJPEG differs from the numpy decoder by {worst['GRAY']} grey levels")
+    tracker = CharucoTracker(board, device=device)
+    _zero_detect_counts()
+    card, cpu = frames_of(mj), frames_of(mj, dev="cpu")
+    share, gap, n = _corner_gap(tracker, [card[i] for i in sorted(card)], [cpu[i] for i in sorted(cpu)])
+    log(f"  {mj.name}: the tracker on the card's frames against its corners on the numpy decoder's: {100 * share:.1f} % "
+        f"of {n} corners found within {DECODE_CORNER_PX} px, the largest distance {gap:.2e} px")
+    if not (n > 0 and share >= DECODE_MIN_ROWS):
+        raise AssertionError("decode: the tracker's corners on nvJPEG's frames miss the numpy decoder's")
+    m4 = DECODE_DIR / "board_mp4v.mp4"
+    ref = np.load(DECODE_DIR / "board_mp4v_cv2_gray.npz")
+    if caps["mpeg4"]["supported"]:
+        card = frames_of(m4)
+        worst_m4 = max(int(np.abs(card[int(i)].astype(int) - f).max()) for i, f in zip(ref["index"], ref["frames"]))
+        sparse = frames_of(m4, wanted={1, 13, 15})
+        log(f"  {m4.name}: NVDEC against OpenCV's frames at {ref['index'].tolist()}: largest difference {worst_m4} "
+            f"grey levels; frames 1, 13, 15 alone (sync samples {np.flatnonzero(read_track(m4).sync).tolist()}) "
+            f"{'equal' if all(np.array_equal(sparse[i], card[i]) for i in sparse) else 'DIFFERENT'}")
+        if worst_m4 > DECODE_MAX_GREY or sorted(sparse) != [1, 13, 15] or not all(np.array_equal(sparse[i], card[i]) for i in sparse):
+            raise AssertionError("decode: NVDEC's mp4v frames miss OpenCV's")
+        share, gap, n = _corner_gap(tracker, [card[int(i)] for i in ref["index"]], list(ref["frames"]))
+        log(f"  {m4.name}: the tracker on NVDEC's frames against OpenCV's: {100 * share:.1f} % of {n} corners within "
+            f"{DECODE_CORNER_PX} px, the largest distance {gap:.2e} px")
+        if not (n > 0 and share >= DECODE_MIN_ROWS):
+            raise AssertionError("decode: the tracker's corners on NVDEC's mp4v frames miss OpenCV's")
+    else:
+        refused(m4, "mpeg4")
+    checks["committed clips"] = _detect_counts()[0]
+    log(f"  committed clips: {time.perf_counter() - t0:.2f} s")
+
+    # (c) ---------------------------------------------------------------------
+    cams = range(WS_CAMERAS)
+    raw = {cid: Path(root) / "calibration" / "extrinsic" / f"cam_{cid}.mp4" for cid in cams}
+    out = Path(tmp) / "decode"
+    copies = {kind: {cid: out / kind / f"cam_{cid}.mp4" for cid in cams} for kind in ("h264", "mjpeg")}
+    tasks = [(raw[cid], copies[kind][cid], kind) for kind in copies for cid in cams]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=DECODE_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+        written = dict(zip([(t[2], int(t[1].stem.split("_")[1])) for t in tasks], pool.map(decode_copy_video, tasks)))
+    n_frames = sum(len(written[("h264", cid)][1]) for cid in cams)
+    log(f"  the workspace cell's {len(cams)} x {n_frames // len(cams)} extrinsic frames written again in "
+        f"{time.perf_counter() - t0:.2f} s ({DECODE_WORKERS} processes): H.264 "
+        f"{sum(written[('h264', c)][0] for c in cams) / 1e6:.1f} MB, MJPEG "
+        f"{sum(written[('mjpeg', c)][0] for c in cams) / 1e6:.1f} MB (raw {sum(p.stat().st_size for p in raw.values()) / 1e6:.1f} MB)")
+
+    def extract(videos):
+        tracker = CharucoTracker(board, device=device)
+        t0 = time.perf_counter()
+        ip = extract_image_points_multicam(videos, tracker, progress=None)
+        sync(device)
+        return ip, time.perf_counter() - t0, tracker
+
+    _zero_detect_counts()
+    ip_raw, raw_s, _ = extract(raw)
+    checks["raw extraction"] = _detect_counts()[0]
+    log(f"  raw extraction: {len(ip_raw)} observations, {n_frames / raw_s:.1f} frames/s ({smi_line})")
+
+    if caps["h264"]["supported"]:
+        for cid in cams:
+            t = read_track(copies["h264"][cid])
+            dec = nvdec.NvdecDecoder("h264", t.extradata, (t.width, t.height), device, nal_length_size=t.nal_length_size)
+            got = {}
+            with open(copies["h264"][cid], "rb") as f:
+                for d in range(t.frame_count):
+                    f.seek(int(t.offsets[d]))
+                    dec.feed(f.read(int(t.sizes[d])), int(t.display[d]))
+                    got.update((i, zlib.crc32(y.cpu().numpy().tobytes())) for i, (y, _) in dec.frames.items())
+                    dec.frames.clear()
+                dec.end()
+                got.update((i, zlib.crc32(y.cpu().numpy().tobytes())) for i, (y, _) in dec.frames.items())
+            dec.close()
+            if [got.get(i) for i in range(t.frame_count)] != written[("h264", cid)][1]:
+                raise AssertionError(f"decode: NVDEC's luma of camera {cid}'s H.264 differs from the luma written")
+        log(f"  H.264: every luma plane NVDEC gave back equals the luma written, bit for bit ({n_frames} frames)")
+    else:
+        refused(copies["h264"][0], "h264",
+                lambda: extract_image_points_multicam(copies["h264"], CharucoTracker(board, device=device), progress=None))
+
+    # the main path: the compressed copies through decode and extraction
+    decoded = {}
+    for kind in ("mjpeg", "h264") if caps["h264"]["supported"] else ("mjpeg",):
+        for cid in cams:
+            nbytes = written[(kind, cid)][0]
+            sync(device)
+            t0 = time.perf_counter()
+            with FrameSource(copies[kind][cid], cid, pixel_format=PixelFormat.GRAY, device=device) as src:
+                opened = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                frames = {p.frame_index: p.frame for p in src}
+                s = time.perf_counter() - t0
+            if kind == "mjpeg":
+                want = frames_of(raw[cid], dev=None)
+                worst_c = max(int(np.abs(frames[i].astype(int) - want[i]).max()) for i in want)
+                if worst_c > DECODE_MAX_GREY:
+                    raise AssertionError(f"decode: camera {cid}'s MJPEG (quality {DECODE_JPEG_QUALITY}) is {worst_c} levels off")
+            decoded[(kind, cid)] = (len(frames), s, nbytes)
+            log(f"  decode {kind} cam {cid}: opened in {1000 * opened:.1f} ms, then {len(frames)} frames, "
+                f"{len(frames) / s:.1f} frames/s, {len(frames) * WS_WH[0] * WS_WH[1] / 1e6 / s:.1f} MB/s of frames, "
+                f"{nbytes / 1e6 / s:.1f} MB/s of bitstream ({smi_line})")
+    results = {}
+    _zero_detect_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    trackers = []
+    with recorded_detect_kernels({}) as inputs:
+        for kind in [k for k in ("mjpeg", "h264") if (k, 0) in decoded]:
+            (ip, _, tr), wall, busy, n_kernels = _cuda_activity(device, lambda: extract(copies[kind]))
+            trackers.append(tr)
+            results[kind] = (ip, wall, busy, n_kernels)
+    sync(device)
+    launches, resident = _detect_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    dispatches = sum(t.dispatches for t in trackers)
+    for kind, (ip, wall, busy, n_kernels) in results.items():
+        share, (p50, p99, gap) = _matched_rows(ip, ip_raw)
+        log(f"  extraction on {kind}: {len(ip)} observations against the raw run's {len(ip_raw)}: {100 * share:.2f} % "
+            f"of its rows within {DECODE_CORNER_PX} px (distance median {p50:.2e}, 99th percentile {p99:.2e}, largest "
+            f"{gap:.2e} px); {n_frames / wall:.1f} frames/s over {len(cams)} cameras, device idle "
+            f"{100 * (1 - busy / wall):.1f} % ({n_kernels} GPU kernels, {busy:.3f} s busy of {wall:.3f} s) ({smi_line})")
+        if not share >= DECODE_MIN_ROWS:
+            raise AssertionError(f"decode: extraction on the {kind} copies misses the raw run's observations")
+    log(f"  kernel launches of the compressed extraction: {launches} (resident {resident}) for {dispatches} dispatches; "
+        f"peak device memory {peak / 2**20:.1f} MiB; nvJPEG decodes {NvJpegDecoder.launches}, NVDEC pictures "
+        f"{nvdec.NvdecDecoder.launches} in this process")
+    if not (launches == (dispatches, dispatches, 2 * dispatches) and resident == dispatches and dispatches > 0):
+        raise AssertionError("decode: kernel launches do not match the dispatches")
+    check_recorded_detect_kernels(inputs, launches, "decode extraction")
+    return launches, checks
+
+
+# ---------------------------------------------------------------------------
 # GUI: the workspace phase's recordings through the port's main window
 # ---------------------------------------------------------------------------
 
@@ -4050,8 +4349,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _cuda_build.build_all()
-    log(f"built {len(_cuda_build.KERNELS)} kernels in {time.perf_counter() - t0:.2f} s, one nvcc process each, started together")
-    for name in _cuda_build.KERNELS:
+    log(f"built {len(_cuda_build.KERNELS)} kernels and {len(_cuda_build.SOURCES) - len(_cuda_build.KERNELS)} library shim "
+        f"(nvJPEG) in {time.perf_counter() - t0:.2f} s, one nvcc process each, started together")
+    for name in _cuda_build.SOURCES:
         built = _cuda_build.build_logs[name] or _cuda_build.build_seconds[name]
         log(f"  {name}.cu: " + (f"{_cuda_build.build_seconds[name]:.2f} s" if built else "found already built, reused"))
         for line in _cuda_build.build_logs[name].splitlines():
@@ -4111,14 +4411,20 @@ def main() -> int:
         t0 = time.perf_counter()
         gui_launches, gui_schur = gui_phase(device, smi_line, handoff)
         log(f"gui phase: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        decode_launches, decode_checks = decode_phase(device, smi_line, handoff["root"], tmp)
+        log(f"decode phase: {time.perf_counter() - t0:.2f} s")
     entry["launches"] += ws_schur + gui_schur
     entry["launches_by_path"]["workspace"] = ws_schur
     entry["launches_by_path"]["gui"] = gui_schur
+    entry["launches_by_path"]["decode"] = 0
     for i, e in enumerate(detect_entries):
         e["launches_by_path"] = ({"detection_slice": e["launches"]} | {path: n[i] for path, n in intr_launches.items()}
-                                 | {"markerless": 0, "sharded": 0, "workspace": ws_launches[i], "gui": gui_launches[i]})
+                                 | {"markerless": 0, "sharded": 0, "workspace": ws_launches[i], "gui": gui_launches[i],
+                                    "decode": decode_launches[i]})
         e["launches"] = sum(e["launches_by_path"].values())
-        e["launches_outside_main_paths"] = {f"workspace {check}": n[i] for check, n in ws_checks.items()}
+        e["launches_outside_main_paths"] = ({f"workspace {check}": n[i] for check, n in ws_checks.items()}
+                                            | {f"decode {check}": n[i] for check, n in decode_checks.items()})
         e["tracker_shapes"] = tracker_shapes[e["name"]]
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, the kernels' build included")
     log(json.dumps({"kernels": [entry, *detect_entries]}))

@@ -87,9 +87,9 @@ def test_threads_loading_one_kernel_build_it_once(stub_nvcc):
 def test_different_kernels_still_build_together(stub_nvcc):
     t0 = time.perf_counter()
     paths = _cuda_build.build_all()
-    assert sorted(paths) == sorted(_cuda_build.KERNELS) and all(p.exists() for p in paths.values())
+    assert sorted(paths) == sorted(_cuda_build.SOURCES) and all(p.exists() for p in paths.values())
     starts = sorted(t for t, _ in stub_nvcc)
-    assert len(starts) == len(_cuda_build.KERNELS)
+    assert len(starts) == len(_cuda_build.SOURCES)
     assert starts[-1] - t0 < 0.15  # all started before the first (0.2 s) ended
 
 

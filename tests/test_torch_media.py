@@ -10,8 +10,9 @@ package's, which decodes through OpenCV (cv2), on the same files:
 - the port's writers (grey; 24-bit RGB through OverlayVideoWriter) read back
   through cv2 bit for bit, the '24BG' (BGR) layout too, and the port's BGR
   -> GRAY conversion equal to cv2.cvtColor on every colour it meets;
-- an mp4v file raises CalibrationError naming the codec and the ffmpeg
-  conversion;
+- an mp4v file's tables read, but FrameSource raises CalibrationError on
+  the CPU (and without a GPU) naming the device and the ffmpeg conversion;
+  an HEVC entry raises naming the codec;
 - CameraData.undistort_frame within one grey level of the JAX package's
   cv2.remap (Brown and fisheye, grey and colour frames);
 - CameraArray.from_video_metadata equal.
@@ -159,13 +160,30 @@ def test_gray_conversion_equals_cv2():
 
 
 def test_compressed_video_raises_naming_the_codec(tmp_path):
+    """mp4v's tables read, but its frames decode only on the CUDA device:
+    on the CPU, and without a GPU, FrameSource raises naming the device and
+    the ffmpeg conversion. A codec the port does not decode (HEVC: the same
+    file under an 'hvc1' entry) raises on every call, naming it."""
+    import torch
+
     path = tmp_path / "cam_0.mp4"
     w = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 30.0, (64, 48))
     for _ in range(3):
         w.write(np.zeros((48, 64, 3), np.uint8))
     w.release()
-    for call in (lambda: read_video_properties(path), lambda: FrameSource(path, 0)):
-        with pytest.raises(CalibrationError, match="'mp4v' is compressed") as e:
+    assert read_video_properties(path).frame_count == 3
+    calls = [lambda: FrameSource(path, 0, device="cpu")]
+    if not torch.cuda.is_available():
+        calls.append(lambda: FrameSource(path, 0))
+    for call, match in zip(calls, ["decodes only on the CUDA device", "decodes on the CUDA device and none"]):
+        with pytest.raises(CalibrationError, match=match) as e:
+            call()
+        assert "MPEG-4 Part 2" in str(e.value)
+        assert "ffmpeg -i" in str(e.value) and "-c:v rawvideo -pix_fmt gray -f mov" in str(e.value)
+    hevc = tmp_path / "hevc.mp4"
+    hevc.write_bytes(path.read_bytes().replace(b"mp4v", b"hvc1"))
+    for call in (lambda: read_video_properties(hevc), lambda: FrameSource(hevc, 0, device="cpu")):
+        with pytest.raises(CalibrationError, match="'hvc1' \\(HEVC\\) is compressed") as e:
             call()
         assert "ffmpeg -i" in str(e.value) and "-c:v rawvideo -pix_fmt gray -f mov" in str(e.value)
     with pytest.raises(CalibrationError, match="not found"):

@@ -15,9 +15,9 @@ against the JAX package's on the same numpy inputs, float64 on the CPU:
 - the chain on the video of tests/test_pose_and_vertical.py:160-197: the
   JAX package's estimate_vertical against the port's
   estimate_vertical_from_frames on the same frames, decoded here with this
-  machine's OpenCV; the port's estimate_vertical refuses that mp4v file
-  (CalibrationError naming the codec: it decodes uncompressed video only)
-  and, on the same frames written uncompressed, gives the JAX package's
+  machine's OpenCV; the port's estimate_vertical on the CPU refuses that
+  mp4v file (CalibrationError: MPEG-4 Part 2 decodes only on the CUDA
+  device's NVDEC) and, on the same frames written uncompressed, gives the JAX package's
   estimate on that file.
 """
 
@@ -166,7 +166,7 @@ def test_chain_on_the_jax_suites_video(tmp_path):
     assert got.n_frames_by_camera == want.n_frames_by_camera == {0: 3}
     up = got.up_by_camera[0]
     assert up[1] > 0.7 and abs(up[0]) < 0.3 and abs(up[2]) < 0.3, up
-    with pytest.raises(CalibrationError, match="'mp4v' is compressed"):
+    with pytest.raises(CalibrationError, match="MPEG-4 Part 2 video decodes only on the CUDA device"):
         TV.estimate_vertical({0: video}, {0: Kv}, models_dir, device="cpu")
     raw = tmp_path / "raw" / "cam_0.mp4"
     with OverlayVideoWriter(raw, (128, 96), 30.0) as w:
