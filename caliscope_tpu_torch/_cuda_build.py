@@ -121,13 +121,14 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def count_launch(wrapper, *counters: str) -> None:
-    """Add one to each named counter attribute of a kernel's wrapper
+def count_launch(wrapper, *counters: str, n: int = 1) -> None:
+    """Add n (one launch, or a CUDA graph's launches of the kernel per
+    replay) to each named counter attribute of a kernel's wrapper
     (`launches` and the like), exactly under threads: the extraction runs
     one thread a camera through the same wrappers."""
     with _count_lock:
         for counter in counters:
-            setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+            setattr(wrapper, counter, getattr(wrapper, counter) + n)
 
 
 def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:

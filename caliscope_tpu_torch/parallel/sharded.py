@@ -42,7 +42,9 @@ from caliscope_tpu_torch.device import resolve_device
 
 class Mesh:
     """The default process group a solve is sharded over, this rank's place
-    in it and its device, with counts of the collectives issued through it."""
+    in it and its device, with counts of the collectives issued through it.
+    A baked solve (solvers/baked.py) captures its all-reduces in CUDA graphs
+    over NCCL and adds each graph's count here per replay."""
 
     def __init__(self, device: torch.device):
         self.rank = dist.get_rank()

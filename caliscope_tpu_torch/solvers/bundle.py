@@ -27,7 +27,11 @@ Python loops over device tensors. The LM loop reads one termination flag per
 iteration. The CG loops run their body unconditionally, freeze the state
 once the stopping test holds (as the while-loop would have stopped), and
 read the flag once every CG_CHECK_EVERY iterations, so their iterates and
-counts are the JAX package's.
+counts are the JAX package's. An LM iteration is split at those two reads
+into pieces without a host read — `_lm_head` (blocks, gradient, the step as
+far as its CG), `_pcg_chunk` (a chunk of CG iterations) and `_lm_tail` (the
+step, the gain-ratio update, the termination test) — which the loop here
+calls in turn and a baked solve replays as CUDA graphs.
 
 Point reductions are segment sums over offsets computed once per solve
 (`_Plan`): sparse rows are sorted by point, constraint slots are sorted once
@@ -50,15 +54,17 @@ sums and the cost on both layouts, point sums on the sparse one, scalars
 over points on the dense one. On the dense layout the fused kernel runs on
 each rank's points, whose S and right-hand side add up over the ranks.
 
-Not ported: baking the problem into the program (`bake_problem=True` raises
-NotImplementedError naming ROADMAP.md item 24b; its torch counterpart is a
-CUDA graph of the LM iteration).
+Baking the problem into the program (`BAConfig.bake_problem=True`):
+solvers/baked.py runs those pieces as CUDA graphs captured once and cached on
+the problem instance, as the JAX package caches its baked executable, with
+the same answers as the loop here (the pieces themselves, eagerly, on the
+CPU).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -102,10 +108,6 @@ CG_CHECK_EVERY = 8
 OBS_MINOR_ON_CUDA = False
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to caliscope_tpu_torch yet (ROADMAP.md queue 1: {item})")
-
-
 @dataclass(frozen=True)
 class BAConfig:
     """Solver configuration."""
@@ -129,7 +131,8 @@ class BAConfig:
     #   'never'  — single placement
     shard: str = "auto"
     shard_min_obs: int = 20_000
-    # baking the problem into the program is not ported (raises, item 24b)
+    # run the LM iteration as CUDA graphs captured once and cached on the
+    # problem instance (solvers/baked.py); the same answers, eagerly on the CPU
     bake_problem: bool = False
     # sparse problems' per-observation layout: 'auto' | 'always' | 'never'
     obs_minor: str = "auto"
@@ -901,47 +904,100 @@ def _schur_apply(factors, bc, bp):
     return dxc, (Hpp_inv * bp_corr[:, None, :]).sum(-1)
 
 
+class _CGState(NamedTuple):
+    """A PCG run's state: iterate, residual and direction (tuples of
+    tensors), r.z, the stopping threshold tol^2 b.b, and the iterations
+    taken (device scalars)."""
+
+    x: tuple
+    r: tuple
+    p: tuple
+    rz: torch.Tensor
+    thresh: torch.Tensor
+    it: torch.Tensor
+
+
+@dataclass
+class _CGSystem:
+    """A linear solve that ends in a PCG: the operator, the preconditioner,
+    the right-hand side, the mesh over whose ranks the points' part of a dot
+    product is summed (None: not sharded, or a camera-only system), and
+    `finish`, which maps the CG's x to (dxc, dxp)."""
+
+    A_mv: Callable
+    M_inv: Callable
+    b: tuple
+    points_mesh: Optional[object]
+    finish: Callable
+
+
+def _cg_dot(a, b, points_mesh):
+    if points_mesh is None:
+        return sum(torch.sum(x * y) for x, y in zip(a, b))
+    return torch.sum(a[0] * b[0]) + points_mesh.sum(torch.sum(a[1] * b[1]))[0]
+
+
+def _pcg_start(M_inv, b, tol: float, points_mesh=None) -> _CGState:
+    """The state of a PCG from x = 0."""
+    z = M_inv(b)
+    return _CGState(
+        x=tuple(torch.zeros_like(t) for t in b), r=b, p=z, rz=_cg_dot(b, z, points_mesh),
+        thresh=(tol**2) * _cg_dot(b, b, points_mesh), it=torch.zeros((), dtype=torch.int64, device=b[0].device),
+    )
+
+
+def _pcg_chunk(A_mv, M_inv, state: _CGState, n: int, points_mesh=None):
+    """n PCG iterations, each of which leaves the state as it was once the
+    stopping test r.r <= thresh holds (as the while-loop would have
+    stopped). Returns (state, whether the test still fails: a device bool)."""
+    x, r, p, rz, thresh, it = state
+    for _ in range(n):
+        active = _cg_dot(r, r, points_mesh) > thresh
+        Ap = A_mv(p)
+        alpha = rz / torch.clamp(_cg_dot(p, Ap, points_mesh), min=1e-30)
+        x_new = tuple(xi + alpha * pi for xi, pi in zip(x, p))
+        r_new = tuple(ri - alpha * ai for ri, ai in zip(r, Ap))
+        z = M_inv(r_new)
+        rz_new = _cg_dot(r_new, z, points_mesh)
+        beta = rz_new / torch.clamp(rz, min=1e-30)
+        p_new = tuple(zi + beta * pi for zi, pi in zip(z, p))
+        keep = lambda new, old: tuple(torch.where(active, a, o) for a, o in zip(new, old))  # noqa: E731
+        x, r, p = keep(x_new, x), keep(r_new, r), keep(p_new, p)
+        rz = torch.where(active, rz_new, rz)
+        it = it + active.to(it.dtype)
+    return _CGState(x, r, p, rz, thresh, it), _cg_dot(r, r, points_mesh) > thresh
+
+
+def _cg_chunks(max_iter: int):
+    """The chunk lengths of a PCG of at most max_iter iterations, as it
+    reads its stopping flag: CG_CHECK_EVERY each, the last one shorter."""
+    return [min(CG_CHECK_EVERY, max_iter - n) for n in range(0, max_iter, CG_CHECK_EVERY)]
+
+
 def _pcg(A_mv, M_inv, b, tol: float, max_iter: int, points_mesh=None):
     """Preconditioned CG from x = 0 on tuples of tensors, as the JAX
     package's while-loops run it: stop once it == max_iter or
-    r.r <= tol^2 b.b. The body runs in chunks of CG_CHECK_EVERY; an
-    iteration whose stopping test already holds leaves the state as it was,
-    so the result is the while-loop's. Returns (x, iterations as a device
-    scalar). With points_mesh, the tuples are (cameras, this rank's points)
-    and the points' part of each dot product is summed over the ranks."""
-
-    def _dot(a, b):
-        if points_mesh is None:
-            return sum(torch.sum(x * y) for x, y in zip(a, b))
-        return torch.sum(a[0] * b[0]) + points_mesh.sum(torch.sum(a[1] * b[1]))[0]
-
-    x = tuple(torch.zeros_like(t) for t in b)
-    r = b
-    z = M_inv(r)
-    p = z
-    rz = _dot(r, z)
-    thresh = (tol**2) * _dot(b, b)
-    it = torch.zeros((), dtype=torch.int64, device=b[0].device)
-    n = 0
-    while n < max_iter:
-        for _ in range(min(CG_CHECK_EVERY, max_iter - n)):
-            active = _dot(r, r) > thresh
-            Ap = A_mv(p)
-            alpha = rz / torch.clamp(_dot(p, Ap), min=1e-30)
-            x_new = tuple(xi + alpha * pi for xi, pi in zip(x, p))
-            r_new = tuple(ri - alpha * ai for ri, ai in zip(r, Ap))
-            z = M_inv(r_new)
-            rz_new = _dot(r_new, z)
-            beta = rz_new / torch.clamp(rz, min=1e-30)
-            p_new = tuple(zi + beta * pi for zi, pi in zip(z, p))
-            keep = lambda new, old: tuple(torch.where(active, a, o) for a, o in zip(new, old))  # noqa: E731
-            x, r, p = keep(x_new, x), keep(r_new, r), keep(p_new, p)
-            rz = torch.where(active, rz_new, rz)
-            it = it + active.to(it.dtype)
-            n += 1
-        if not bool(_dot(r, r) > thresh):  # the one device->host read of a chunk
+    r.r <= tol^2 b.b. The body runs in chunks of CG_CHECK_EVERY (a frozen
+    iteration leaves the state as it was, so the result is the
+    while-loop's), and the stopping flag is read after each. Returns (x,
+    iterations as a device scalar). With points_mesh, the tuples are
+    (cameras, this rank's points) and the points' part of each dot product
+    is summed over the ranks."""
+    state = _pcg_start(M_inv, b, tol, points_mesh)
+    for n in _cg_chunks(max_iter):
+        state, running = _pcg_chunk(A_mv, M_inv, state, n, points_mesh)
+        if not bool(running):  # the one device->host read of a chunk
             break
-    return x, it
+    return state.x, state.it
+
+
+def _finish_cg(solved, tol, max_iter):
+    """(dxc, dxp, CG iterations or None) of a solve that a setup function
+    took as far as its CG: run the CG where there is one."""
+    if not isinstance(solved, _CGSystem):
+        return (*solved, None)
+    x, it = _pcg(solved.A_mv, solved.M_inv, solved.b, tol, max_iter, solved.points_mesh)
+    return (*solved.finish(x), it)
 
 
 def _solve_schur(problem, plan: _Plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, lam, cg_tol, cg_max_iter, fused: bool = False, obs_minor: bool = False):
@@ -954,6 +1010,13 @@ def _solve_schur(problem, plan: _Plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, 
     fused: on a dense reprojection-only problem, assemble S, its right-hand
     side and the inverse point blocks with the fused kernel
     (fused_schur.schur_s_rhs) instead of its plain version."""
+    setup = _schur_setup(problem, plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, lam, fused, obs_minor)
+    return _finish_cg(setup, cg_tol, cg_max_iter)
+
+
+def _schur_setup(problem, plan: _Plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, lam, fused: bool, obs_minor: bool):
+    """_solve_schur up to its CG: (dxc, dxp) without constraint rows, else
+    the CG on the full system (_CGSystem)."""
     if isinstance(problem, BADenseProblem) and not problem.n_constraints:
         C = problem.n_cameras
         free_c = problem.param_free.to(g_c.dtype)
@@ -968,10 +1031,10 @@ def _solve_schur(problem, plan: _Plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, 
         # bp_corr = bp - G^T dxc, with G^T dxc recomputed from the blocks
         tmp = w * (Jc * dxc[:, None, :, None]).sum(2)
         gtd = (Jp * tmp[:, :, None, :]).sum((0, 1))  # (3,P)
-        return dxc, _pminor_backsub(Hpp_inv_t, bp_t - gtd), None
+        return dxc, _pminor_backsub(Hpp_inv_t, bp_t - gtd)
     factors = _schur_factors(problem, plan, w, Jc, Jp, d_c, d_p, lam, obs_minor)
     if not problem.n_constraints:
-        return (*_schur_apply(factors, -g_c, -g_p), None)
+        return _schur_apply(factors, -g_c, -g_p)
     free_c = factors[4]
     diag_c = torch.clamp(_diag(d_c), min=1e-12)
     diag_p = _point_diag(problem, w, Jp, d_p, obs_minor)
@@ -980,8 +1043,8 @@ def _solve_schur(problem, plan: _Plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, 
         hc, hp = _hessian_matvec(problem, plan, w, Jc, Jp, qidx, Jq, v[0], v[1], obs_minor)
         return hc + lam * diag_c * v[0] + (1.0 - free_c) * v[0], hp + lam * diag_p * v[1]
 
-    (dxc, dxp), it = _pcg(A_mv, lambda r: _schur_apply(factors, *r), (-g_c, -g_p), cg_tol, cg_max_iter, plan.points_mesh)
-    return dxc * free_c, dxp, it
+    return _CGSystem(A_mv, lambda r: _schur_apply(factors, *r), (-g_c, -g_p), plan.points_mesh,
+                     lambda x: (x[0] * free_c, x[1]))
 
 
 def _solve_schur_cg(problem, plan: _Plan, w, Jc, Jp, g_c, g_p, d_c, d_p, lam, tol, max_iter, obs_minor: bool = False):
@@ -990,6 +1053,11 @@ def _solve_schur_cg(problem, plan: _Plan, w, Jc, Jp, g_c, g_p, d_c, d_p, lam, to
     the observations: the coupling tensor G is never built, so this solver
     has no C*P memory ceiling. Reprojection-only. Returns (dxc, dxp, CG
     iterations)."""
+    return _finish_cg(_schur_cg_setup(problem, plan, w, Jc, Jp, g_c, g_p, d_c, d_p, lam, obs_minor), tol, max_iter)
+
+
+def _schur_cg_setup(problem, plan: _Plan, w, Jc, Jp, g_c, g_p, d_c, d_p, lam, obs_minor: bool) -> _CGSystem:
+    """_solve_schur_cg up to its CG (a camera-only system)."""
     free_c = problem.param_free.to(g_c.dtype)
     A_cc = _damped_A_cc(problem, d_c, lam)
     A_inv = _inv(A_cc)  # (C,9,9) exact block preconditioner
@@ -1052,16 +1120,23 @@ def _solve_schur_cg(problem, plan: _Plan, w, Jc, Jp, g_c, g_p, d_c, d_p, lam, to
         Sp = (A_cc * vc[:, None, :]).sum(-1) - G(Hpp_inv_apply(G_T(vc)))
         return (Sp * free_c + (1.0 - free_c) * vc,)
 
+    def finish(x):
+        dxc = x[0] * free_c
+        return dxc, Hpp_inv_apply(-g_p - G_T(dxc))
+
     b = (-g_c + G(Hpp_inv_apply(g_p))) * free_c
-    (x,), it = _pcg(S_mv, lambda r: ((A_inv * r[0][:, None, :]).sum(-1),), (b,), tol, max_iter)
-    dxc = x * free_c
-    return dxc, Hpp_inv_apply(-g_p - G_T(dxc)), it
+    return _CGSystem(S_mv, lambda r: ((A_inv * r[0][:, None, :]).sum(-1),), (b,), None, finish)
 
 
 def _solve_cg(problem, plan: _Plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, lam, tol, max_iter, obs_minor: bool = False):
     """Block-Jacobi preconditioned CG on the full damped normal equations,
     matrix-free (each matvec one pass over the observations and constraint
     rows). Returns (dxc, dxp, CG iterations)."""
+    return _finish_cg(_cg_setup(problem, plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, lam, obs_minor), tol, max_iter)
+
+
+def _cg_setup(problem, plan: _Plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, lam, obs_minor: bool) -> _CGSystem:
+    """_solve_cg up to its CG."""
     free_c = problem.param_free.to(g_c.dtype)
     diag_c = torch.clamp(_diag(d_c), min=1e-12)
     M_c_inv = _inv(d_c + torch.diag_embed(lam * diag_c + torch.where(problem.param_free, 0.0, 1.0).to(d_c.dtype)))
@@ -1082,8 +1157,7 @@ def _solve_cg(problem, plan: _Plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, lam
     def M_inv(r):
         return (M_c_inv * r[0][:, None, :]).sum(-1), M_p_apply(r[1])
 
-    (dxc, dxp), it = _pcg(A_mv, M_inv, (-g_c, -g_p), tol, max_iter, plan.points_mesh)
-    return dxc * free_c, dxp, it
+    return _CGSystem(A_mv, M_inv, (-g_c, -g_p), plan.points_mesh, lambda x: (x[0] * free_c, x[1]))
 
 
 def _predicted_decrease(problem, w, Jp, d_c, d_p, g_c, g_p, dxc, dxp, lam, obs_minor: bool = False, plan: Optional[_Plan] = None):
@@ -1125,28 +1199,37 @@ class BAResult:
     n_devices: int = 1  # ranks the problem was sharded over
 
 
-def _step(problem, plan, cam9, X, lam, *, loss, f_scale, solver_kind, cg_tol, cg_max_iter, fused, obs_minor):
-    """Blocks, gradient and damped step of one LM iteration: (dxc, dxp,
-    gnorm, CG iterations or None, the model's terms (w, Jp, d_c, d_p, g_c,
-    g_p), this rank's observation cost, the constraint rows' cost)."""
+def _lm_head(problem, plan, cam9, X, lam, *, loss, f_scale, solver_kind, fused, obs_minor):
+    """The head of one LM iteration: blocks, gradient and the damped step as
+    far as its CG. Returns (the step (dxc, dxp), or the _CGSystem that ends
+    it; gnorm; the model's terms (w, Jp, d_c, d_p, g_c, g_p); this rank's
+    observation cost; the constraint rows' cost)."""
     r, w, Jc, Jp, cost_obs, rq, qidx, Jq, cost_con = _blocks(problem, cam9, X, loss, f_scale, obs_minor, plan)
     g_c, g_p, d_c, d_p = _gradient_and_diag(problem, plan, w, r, Jc, Jp, rq, qidx, Jq, obs_minor)
     gmax_p = torch.max(torch.abs(g_p))
     if plan.points_mesh is not None:
         gmax_p = plan.points_mesh.max(gmax_p)
     gnorm = torch.maximum(torch.max(torch.abs(g_c * problem.param_free)), gmax_p)
-    cg_it = None
     if solver_kind == "dense":
-        dxc, dxp = _solve_dense(problem, plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, lam, obs_minor)
+        solved = _solve_dense(problem, plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, lam, obs_minor)
     elif solver_kind == "schur":
-        dxc, dxp, cg_it = _solve_schur(
-            problem, plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, lam, cg_tol, cg_max_iter, fused, obs_minor
-        )
+        solved = _schur_setup(problem, plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, lam, fused, obs_minor)
     elif solver_kind == "schur_cg":
-        dxc, dxp, cg_it = _solve_schur_cg(problem, plan, w, Jc, Jp, g_c, g_p, d_c, d_p, lam, cg_tol, cg_max_iter, obs_minor)
+        solved = _schur_cg_setup(problem, plan, w, Jc, Jp, g_c, g_p, d_c, d_p, lam, obs_minor)
     else:
-        dxc, dxp, cg_it = _solve_cg(problem, plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, lam, cg_tol, cg_max_iter, obs_minor)
-    return dxc, dxp, gnorm, cg_it, (w, Jp, d_c, d_p, g_c, g_p), cost_obs, cost_con
+        solved = _cg_setup(problem, plan, w, Jc, Jp, qidx, Jq, g_c, g_p, d_c, d_p, lam, obs_minor)
+    return solved, gnorm, (w, Jp, d_c, d_p, g_c, g_p), cost_obs, cost_con
+
+
+def _step(problem, plan, cam9, X, lam, *, loss, f_scale, solver_kind, cg_tol, cg_max_iter, fused, obs_minor):
+    """Blocks, gradient and damped step of one LM iteration: (dxc, dxp,
+    gnorm, CG iterations or None, the model's terms (w, Jp, d_c, d_p, g_c,
+    g_p), this rank's observation cost, the constraint rows' cost)."""
+    solved, gnorm, model, cost_obs, cost_con = _lm_head(
+        problem, plan, cam9, X, lam, loss=loss, f_scale=f_scale, solver_kind=solver_kind, fused=fused, obs_minor=obs_minor,
+    )
+    dxc, dxp, cg_it = _finish_cg(solved, cg_tol, cg_max_iter)
+    return dxc, dxp, gnorm, cg_it, model, cost_obs, cost_con
 
 
 def _lm_update(problem, plan, cam9, X, lam, cost, dxc, dxp, cam9_new, X_new, model, *, loss, f_scale, obs_minor):
@@ -1159,6 +1242,29 @@ def _lm_update(problem, plan, cam9, X, lam, cost, dxc, dxp, cam9_new, X_new, mod
     lam = torch.where(accept, lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0), lam * 4.0)
     cam9, X = torch.where(accept, cam9_new, cam9), torch.where(accept, X_new, X)
     return cam9, X, torch.clamp(lam, 1e-12, 1e10), cost_new, accept
+
+
+def _lm_tail(problem, plan, cam9, X, lam, cost, gnorm, dxc, dxp, model, lb, ub, *, loss, f_scale, ftol, xtol, gtol, obs_minor):
+    """The tail of one LM iteration, from its step: the bounded trial point,
+    the gain-ratio update and the termination test. Returns (cam9', X',
+    lam', cost', done as a device bool)."""
+    cam9, X, lam, cost_new, accept = _lm_update(
+        problem, plan, cam9, X, lam, cost, dxc, dxp, torch.clamp(cam9 + dxc, lb, ub), X + dxp, model,
+        loss=loss, f_scale=f_scale, obs_minor=obs_minor,
+    )
+    rel_dec = (cost - cost_new) / torch.clamp(cost, min=1e-30)
+    # scipy-style termination: ftol (small accepted relative decrease),
+    # xtol (small accepted step), gtol, or a stalled trust region
+    sum_X2, sum_dxp2 = _reduce(plan.points_mesh, torch.sum(X**2), torch.sum(dxp**2))
+    x_norm = torch.sqrt(torch.sum(cam9**2) + sum_X2)
+    dx_norm = torch.sqrt(torch.sum(dxc**2) + sum_dxp2)
+    done = (
+        (accept & (rel_dec < ftol))
+        | (accept & (dx_norm < xtol * (x_norm + xtol)))
+        | (gnorm < gtol)
+        | (lam >= 1e9)
+    )
+    return cam9, X, lam, torch.where(accept, cost_new, cost), done
 
 
 def _lm_run(problem, plan, cam9, X, lb, ub, *, loss, f_scale, max_iter, ftol, xtol, gtol, solver_kind, cg_tol, cg_max_iter, init_lambda, fused, obs_minor):
@@ -1179,25 +1285,10 @@ def _lm_run(problem, plan, cam9, X, lb, ub, *, loss, f_scale, max_iter, ftol, xt
         )
         if cg_it is not None:
             cg_its.append(cg_it)
-
-        # gain ratio vs the damped-model predicted decrease
-        cam9, X, lam, cost_new, accept = _lm_update(
-            problem, plan, cam9, X, lam, cost, dxc, dxp, torch.clamp(cam9 + dxc, lb, ub), X + dxp, model,
-            loss=loss, f_scale=f_scale, obs_minor=obs_minor,
+        cam9, X, lam, cost, done_t = _lm_tail(
+            problem, plan, cam9, X, lam, cost, gnorm, dxc, dxp, model, lb, ub,
+            loss=loss, f_scale=f_scale, ftol=ftol, xtol=xtol, gtol=gtol, obs_minor=obs_minor,
         )
-        rel_dec = (cost - cost_new) / torch.clamp(cost, min=1e-30)
-        # scipy-style termination: ftol (small accepted relative decrease),
-        # xtol (small accepted step), gtol, or a stalled trust region
-        sum_X2, sum_dxp2 = _reduce(plan.points_mesh, torch.sum(X**2), torch.sum(dxp**2))
-        x_norm = torch.sqrt(torch.sum(cam9**2) + sum_X2)
-        dx_norm = torch.sqrt(torch.sum(dxc**2) + sum_dxp2)
-        done_t = (
-            (accept & (rel_dec < ftol))
-            | (accept & (dx_norm < xtol * (x_norm + xtol)))
-            | (gnorm < gtol)
-            | (lam >= 1e9)
-        )
-        cost = torch.where(accept, cost_new, cost)
         it += 1
         done = bool(done_t)  # the one device->host read of the iteration
     return cam9, X, cost0, cost, gnorm, it, done, cg_its
@@ -1288,6 +1379,16 @@ def _all_points(problem, X, P: int):
     return X[:P] if X.shape[0] != P else X
 
 
+def _bounds(C: int, on_dev: dict):
+    """(lb, ub) of the (C,9) camera blocks: the free intrinsics' bounds,
+    extrinsics unbounded."""
+    lb = np.full((C, N_CAM_PARAMS), -BIG)
+    ub = np.full((C, N_CAM_PARAMS), BIG)
+    lb[:, 6:] = INTRINSIC_LOWER
+    ub[:, 6:] = INTRINSIC_UPPER
+    return torch.as_tensor(lb, **on_dev), torch.as_tensor(ub, **on_dev)
+
+
 def lm_iteration(problem, cam9, X, lam, *, loss: str = "linear", f_scale: float = 1.0, use_dense: bool = False, solver: str = "schur", cg_tol: float = 1e-6, cg_max_iter: int = 200):
     """One full Levenberg-Marquardt iteration (assembly + linear solve +
     gain-ratio damping update) on the problem's device, without bounds or
@@ -1344,8 +1445,6 @@ def lm_solve(problem, cam9_0, X0, config: BAConfig = BAConfig(), mesh=None, *, f
     """
     if not isinstance(problem, (BAProblem, BADenseProblem)):
         raise TypeError(f"lm_solve takes a BAProblem or a BADenseProblem, not {type(problem).__name__}")
-    if config.bake_problem:
-        raise not_ported("Baking the problem into the program (bake_problem=True)", "item 24b, a CUDA graph of the LM iteration")
     if config.solver == "schur_cg" and problem.n_constraints:
         raise ValueError(
             "solver='schur_cg' is reprojection-only (constraints couple points "
@@ -1357,6 +1456,7 @@ def lm_solve(problem, cam9_0, X0, config: BAConfig = BAConfig(), mesh=None, *, f
             "fused_schur=True: the fused Schur kernel takes dense reprojection-only "
             "problems; this one is sparse or has constraint rows"
         )
+    given = problem
     problem = _sharded(problem, config, mesh, cam9_0, X0)
     dtype, device = problem.uv.dtype, problem.uv.device
     on_dev = dict(dtype=dtype, device=device)
@@ -1364,36 +1464,32 @@ def lm_solve(problem, cam9_0, X0, config: BAConfig = BAConfig(), mesh=None, *, f
     X_all = torch.as_tensor(X0, **on_dev)
     X = _local_points(problem, X_all)
     P = int(X.shape[0])
-    solver_kind = _solver_kind(problem, config, C, P)
-    obs_minor = _use_obs_minor(problem, config.obs_minor)
     if fused_schur is None:
         fused_schur = isinstance(problem, BADenseProblem) and fused_schur_available(problem, P, dtype)
-    plan = _make_plan(problem, P, dtype)
-
-    lb = np.full((C, N_CAM_PARAMS), -BIG)
-    ub = np.full((C, N_CAM_PARAMS), BIG)
-    lb[:, 6:] = INTRINSIC_LOWER
-    ub[:, 6:] = INTRINSIC_UPPER
-    cam9, X, cost0, cost, gnorm, it, done, cg_its = _lm_run(
-        problem,
-        plan,
-        torch.as_tensor(np.asarray(cam9_0), **on_dev),
-        X,
-        torch.as_tensor(lb, **on_dev),
-        torch.as_tensor(ub, **on_dev),
+    opts = dict(
         loss=config.loss,
         f_scale=float(config.f_scale),
         max_iter=config.max_iter,
         ftol=config.ftol,
         xtol=config.xtol,
         gtol=config.gtol,
-        solver_kind=solver_kind,
+        solver_kind=_solver_kind(problem, config, C, P),
         cg_tol=config.cg_tol,
         cg_max_iter=config.cg_max_iter,
         init_lambda=config.init_lambda,
         fused=bool(fused_schur),
-        obs_minor=obs_minor,
+        obs_minor=_use_obs_minor(problem, config.obs_minor),
     )
+    cam9_0 = torch.as_tensor(np.asarray(cam9_0), **on_dev)
+    if config.bake_problem:
+        from caliscope_tpu_torch.solvers.baked import baked_runner
+
+        runner = baked_runner(given, problem, P, opts)
+        problem = runner.problem
+        cam9, X, cost0, cost, gnorm, it, done, cg_its = runner.solve(cam9_0, X)
+    else:
+        lb, ub = _bounds(C, on_dev)
+        cam9, X, cost0, cost, gnorm, it, done, cg_its = _lm_run(problem, _make_plan(problem, P, dtype), cam9_0, X, lb, ub, **opts)
     # one small readback for the camera blocks, scalars and CG counts
     tail = [cost0, cost, gnorm] + [c.to(dtype) for c in cg_its]
     flat = torch.cat([cam9.reshape(-1), torch.stack(tail)]).cpu().numpy()
@@ -1406,9 +1502,9 @@ def lm_solve(problem, cam9_0, X0, config: BAConfig = BAConfig(), mesh=None, *, f
         n_iterations=it,
         converged=done,
         gradient_norm=float(flat[nc + 2]),
-        solver=solver_kind,
-        fused_schur=bool(fused_schur) and solver_kind == "schur",
-        obs_minor=obs_minor,
+        solver=opts["solver_kind"],
+        fused_schur=opts["fused"] and opts["solver_kind"] == "schur",
+        obs_minor=opts["obs_minor"],
         cg_iterations=tuple(int(c) for c in flat[nc + 3 :]),
         n_devices=problem.shard.mesh.size if problem.shard is not None else 1,
     )

@@ -405,7 +405,11 @@ class CaptureVolume:
         BAConfig.shard_min_obs observations, 'always' over any initialised
         group, 'never' keeps one placement. Every rank of the group calls
         optimize on the same volume; each gets the whole result.
-        bake_problem: not ported (lm_solve raises, ROADMAP.md item 24b).
+        bake_problem: passed to lm_solve as BAConfig.bake_problem — on CUDA
+        the LM iteration runs as CUDA graphs captured on the first baked
+        solve of a problem and cached on it (solvers/baked.py); the answers
+        are those of an unbaked solve. Each optimize builds a new problem,
+        so here every baked solve captures anew.
         fused_schur: passed to lm_solve — None (default) assembles the Schur
         system with the CUDA kernel whenever the problem qualifies, False
         never, True always (raising where the kernel cannot run)."""

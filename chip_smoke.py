@@ -100,7 +100,24 @@ on any failed check. Phases:
    a Schur solve on each rank and held to its plain version on each rank's
    first LM iteration's blocks (P = 20,480); ms per LM iteration and the
    all-reduces and bytes per iteration.
-10. Workspace: a user's project folder, from recordings to a calibrated rig
+10. Baked: BAConfig(bake_problem=True), the LM iteration captured as CUDA
+   graphs and cached on the problem (caliscope_tpu_torch/solvers/baked.py).
+   The canonical BA problem (dense, 40,960 bucketed points, kernel 1 inside
+   the head graph) to convergence baked and unbaked from the same start,
+   gated on the same LM iterations and convergence, every cam9 and X entry
+   within 1e-5 of its column's scale (whether they are bit-equal printed),
+   kernel 1's launches = the baked solve's Schur solves (counted per
+   replay), and a second baked solve replaying the cached graphs with no
+   new capture; ms per LM iteration baked and unbaked (CUDA events, median
+   of 3 fixed 10-iteration solves each, in turns), the capture's ms, the
+   graphs' pool MiB, host reads an iteration, device ms and GPU kernels an
+   iteration under the profiler; 'cg' and 'schur_cg' on the canonical
+   problem and the constrained static-marker problem of 7 (c) (sparse rows,
+   'schur' with its CG), each gated on the same LM and CG iterations baked
+   and unbaked; a world-size-1 NCCL mesh, baked against unbaked bit for bit
+   with the all-reduces counted per replay; and a gloo world on the card,
+   where a baked solve must raise ValueError.
+11. Workspace: a user's project folder, from recordings to a calibrated rig
    and a reconstruction, through the port's CLI in process
    (caliscope_tpu_torch.__main__.main: init, export-board, status,
    calibrate-intrinsics, extract, calibrate-extrinsics, reconstruct,
@@ -123,7 +140,7 @@ on any failed check. Phases:
    Prints seconds a
    step, decode MB/s and frames/s a camera, extraction frames/s, the
    device's idle share during `extract`, launches a step, peak memory.
-11. GUI: the same recordings, copied into a fresh project folder, through
+12. GUI: the same recordings, copied into a fresh project folder, through
    the port's GUI (caliscope_tpu_torch.gui.main_window.MainWindow on the
    headless Qt backend, device cuda), driven as a user clicks it: the
    Project tab's board and routing, the Cameras tab's Calibrate for each
@@ -146,7 +163,7 @@ on any failed check. Phases:
    Prints seconds a GUI action, extraction frames/s with the display thread
    on against the CLI's, the device's idle share, frames displayed and
    dropped, peak memory.
-12. Decode: compressed recordings on the card. (a) NVDEC's answer
+13. Decode: compressed recordings on the card. (a) NVDEC's answer
    (cuvidGetDecoderCaps) for H.264, MPEG-4 Part 2, HEVC and JPEG at 8-bit
    4:2:0; (b) the committed clips under tests/data/video/: the MJPEG board
    clip through nvJPEG against the port's numpy decoder (within 2 grey
@@ -166,7 +183,7 @@ on any failed check. Phases:
    kernels 2-4 launched as dispatched and equal to their plain versions at
    every input. Prints decode frames/s and MB/s a camera, extraction
    frames/s, the device's idle share and peak memory.
-13. A `kernels` JSON line (each kernel with its launches on every path,
+14. A `kernels` JSON line (each kernel with its launches on every path,
    `launches_by_path`), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -1648,7 +1665,8 @@ def small_two_sided_card_vs_cpu(device):
 
 def constrained_phase(device, smi_line, unconstrained_stages, ring, ring_ip, canonical_volume):
     """Returns the Schur kernel's launches over the three constrained runs
-    (0: its gate is closed for constrained and sparse problems)."""
+    (0: its gate is closed for constrained and sparse problems) and run
+    (c)'s capture volume (the static-marker problem, sparse rows)."""
     from caliscope_tpu_torch.solvers import fused_schur as FS
 
     t0 = time.perf_counter()
@@ -1686,7 +1704,7 @@ def constrained_phase(device, smi_line, unconstrained_stages, ring, ring_ip, can
     log(f"constrained two_sided_ring_scene(): the card within {gap_rot:.3e} deg and {gap_center * 1e3:.4f} mm of the CPU run")
     if not (gap_rot <= CARD_VS_CPU_ROTATION_DEG and gap_center <= CARD_VS_CPU_CENTER_M):
         raise AssertionError(f"constrained: the card's two-sided 6 x 24 rig differs from the CPU's by {gap_rot} deg, {gap_center} m")
-    return launches
+    return launches, runs["c_static_markers"][1].capture_volume
 
 
 # ---------------------------------------------------------------------------
@@ -3193,6 +3211,241 @@ def vertical_and_sharded_phase(device, smi_line):
 
 
 # ---------------------------------------------------------------------------
+# Baked phase: bake_problem=True, the LM iteration as cached CUDA graphs
+# ---------------------------------------------------------------------------
+
+BAKE_TIMING_ITERS = 10
+BAKE_TIMING_ROUNDS = 3
+BAKE_SCALE_RTOL = 1e-5  # cam9 and X entries against their column's scale, baked vs unbaked
+
+
+class SolveLog:
+    """lm_solve, keeping every result, so that a phase can count the Schur
+    solves kernel 1 must have launched for."""
+
+    def __init__(self):
+        self.results = []
+
+    def __call__(self, *args, **kwargs):
+        from caliscope_tpu_torch.solvers import bundle
+
+        res = bundle.lm_solve(*args, **kwargs)
+        self.results.append(res)
+        return res
+
+    @property
+    def schur_solves(self) -> int:
+        return sum(r.n_iterations for r in self.results if r.fused_schur)
+
+
+def _scaled_gap(a, b):
+    """Largest |a - b| over the largest |b| of its column."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float((np.abs(a - b) / np.maximum(np.abs(b).max(axis=0), 1e-12)).max())
+
+
+def _same_bits(a, b) -> bool:
+    import numpy as np
+    import torch
+
+    return bool(np.array_equal(a.cam9, b.cam9) and torch.equal(a.X, b.X))
+
+
+def baked_vs_unbaked(device, solve, problem, cam9, X0, config, what, mesh=None):
+    """An unbaked and then a baked solve of `problem` from the same start,
+    gated on the same LM iterations, convergence and CG iterations, every
+    cam9 and X entry within BAKE_SCALE_RTOL of its column's scale, and
+    kernel 1's launches in the baked solve = its Schur solves. Returns
+    (unbaked, baked, the runner the baked solve made)."""
+    import dataclasses
+
+    from caliscope_tpu_torch.solvers import fused_schur as FS
+
+    want = solve(problem, cam9, X0, config, mesh=mesh)
+    before = dict(getattr(problem, "_baked_runners", {}))
+    n0 = FS.schur_s_rhs.launches
+    sync(device)
+    t0 = time.perf_counter()
+    got = solve(problem, cam9, X0, dataclasses.replace(config, bake_problem=True), mesh=mesh)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = FS.schur_s_rhs.launches - n0
+    new = [r for k, r in problem._baked_runners.items() if before.get(k) is not r]
+    runner = new[0] if new else None
+    gaps = dict(cam9=_scaled_gap(got.cam9, want.cam9), X=_scaled_gap(got.X.cpu().numpy(), want.X.cpu().numpy()))
+    cg = got.cg_iterations
+    log(f"baked {what}: {got.n_iterations} LM iterations (unbaked {want.n_iterations}), converged {got.converged}, "
+        f"solver {got.solver}, fused kernel {got.fused_schur}, CG iterations mean {sum(cg) / max(len(cg), 1):.1f} "
+        f"max {max(cg, default=0)} (the unbaked solve's: {cg == want.cg_iterations}); cost {got.cost_final:.9e} "
+        f"(unbaked {want.cost_final:.9e}); scaled gaps {gaps}; bit-equal to unbaked: {_same_bits(got, want)}; "
+        f"kernel 1 launches {launches}; {seconds:.3f} s, the capture included "
+        f"({1e3 * runner.capture_seconds if runner else 0.0:.1f} ms)")
+    if runner is None or (device.type == "cuda" and runner.graphs is None):
+        raise AssertionError(f"baked {what}: the solve captured no CUDA graphs")
+    if (got.n_iterations, got.converged, got.cg_iterations) != (want.n_iterations, want.converged, want.cg_iterations):
+        raise AssertionError(f"baked {what}: LM / CG counts differ from the unbaked solve's")
+    if not max(gaps.values()) <= BAKE_SCALE_RTOL:
+        raise AssertionError(f"baked {what}: cam9 / X differ from the unbaked solve's by {gaps} of scale")
+    if launches != (got.n_iterations if got.fused_schur else 0):
+        raise AssertionError(f"baked {what}: kernel 1 launched {launches} times for {got.n_iterations} Schur solves")
+    return want, got, runner
+
+
+def _event_ms(fn):
+    """(CUDA-event ms of fn() per LM iteration of the result it returns, the result)."""
+    import torch
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    res = fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / res.n_iterations, res
+
+
+def baked_timing(device, smi_line, solve, problem, cam9, X0):
+    """ms per LM iteration of the canonical problem at a fixed iteration
+    count, unbaked and baked in turns (median of BAKE_TIMING_ROUNDS each),
+    the capture's ms, the graphs' pool, host reads an iteration, and one
+    solve of each under the profiler (device ms, GPU kernels and syncs an
+    iteration, device-busy share)."""
+    import dataclasses
+    import statistics
+
+    from caliscope_tpu_torch.solvers import bundle
+
+    config = bundle.BAConfig(max_iter=BAKE_TIMING_ITERS, ftol=0.0, xtol=0.0, gtol=0.0, solver="schur")
+    baked = dataclasses.replace(config, bake_problem=True)
+    _want, _got, runner = baked_vs_unbaked(device, solve, problem, cam9, X0, config, "canonical, 10 iterations")
+    reads0, solves0 = runner.host_reads, runner.solves
+    times = {False: [], True: []}
+    for bake in (False, True, True, False) + (False, True) * (BAKE_TIMING_ROUNDS - 2):
+        ms, res = _event_ms(lambda: solve(problem, cam9, X0, baked if bake else config))
+        if res.n_iterations != BAKE_TIMING_ITERS:
+            raise AssertionError(f"baked timing: a fixed-iteration solve stopped after {res.n_iterations}")
+        times[bake].append(ms)
+    reads = (runner.host_reads - reads0) / (BAKE_TIMING_ITERS * (runner.solves - solves0))
+    report = dict(
+        ms_per_lm_iteration=dict(unbaked=statistics.median(times[False]), baked=statistics.median(times[True])),
+        ms_each=dict(unbaked=[round(t, 4) for t in times[False]], baked=[round(t, 4) for t in times[True]]),
+        capture_ms=1e3 * runner.capture_seconds, graph_pool_mib=(runner.pool_bytes() or 0) / 2**20,
+        graphs=sorted(map(str, runner.counts)), host_reads_per_iteration=reads,
+        kernel1_launches_per_head_replay=runner.counts.get("head", (None,))[0],
+    )
+    if device.type == "cuda":
+        for bake in (False, True):
+            dev_s, n_kernels, syncs, wall = device_costs(device, lambda b=bake: solve(problem, cam9, X0, baked if b else config))
+            report["profiled_" + ("baked" if bake else "unbaked")] = dict(
+                device_ms_per_iteration=1e3 * dev_s / BAKE_TIMING_ITERS,
+                gpu_kernels_per_iteration=n_kernels / BAKE_TIMING_ITERS,
+                syncs_per_iteration=syncs / BAKE_TIMING_ITERS, device_busy_share=dev_s / wall,
+            )
+    log(f"baked canonical timing ({problem.n_cameras} cameras x {problem.n_points} bucketed points, "
+        f"{BAKE_TIMING_ITERS} LM iterations a solve, unbaked and baked in turns, CUDA events): {json.dumps(report)} "
+        f"[{smi_line}]")
+    if reads != 1.0:
+        raise AssertionError(f"baked timing: {reads} host reads an LM iteration (the 'schur' loop reads one)")
+
+
+def baked_sharded(device, smi_line, solve, problem, cam9, X0):
+    """A world-size-1 NCCL mesh: an unbaked and two baked fixed-iteration
+    solves (the all-reduces inside the graphs), bit-equal, the same
+    all-reduces a solve; then a gloo world on the card, where a baked solve
+    raises ValueError."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from caliscope_tpu_torch.parallel import make_obs_mesh
+    from caliscope_tpu_torch.solvers import bundle
+
+    config = bundle.BAConfig(max_iter=BAKE_TIMING_ITERS, ftol=0.0, xtol=0.0, gtol=0.0, solver="schur")
+    baked = dataclasses.replace(config, bake_problem=True)
+    backend = "nccl" if device.type == "cuda" else "gloo"  # gloo: a rehearsal on the CPU
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_obs_mesh(device)
+        r0 = mesh.all_reduces
+        want = solve(problem, cam9, X0, config, mesh=mesh)
+        r1 = mesh.all_reduces
+        _want, got, runner = baked_vs_unbaked(device, solve, problem, cam9, X0, config, f"{backend} world 1", mesh=mesh)
+        r2 = mesh.all_reduces
+        again = solve(problem, cam9, X0, baked, mesh=mesh)
+        r3 = mesh.all_reduces
+        ms_baked, _ = _event_ms(lambda: solve(problem, cam9, X0, baked, mesh=mesh))
+        ms_unbaked, _ = _event_ms(lambda: solve(problem, cam9, X0, config, mesh=mesh))
+    finally:
+        dist.destroy_process_group()
+    per_solve = dict(unbaked=r1 - r0, unbaked_and_first_baked=r2 - r1, second_baked=r3 - r2)
+    log(f"baked {backend} world 1: all-reduces a solve {per_solve}, a graph's per replay (kernel 1 launches, "
+        f"all-reduces, bytes) {dict((str(k), v) for k, v in runner.counts.items())}; bit-equal to unbaked "
+        f"{_same_bits(got, want)}, the second baked solve to the first {_same_bits(again, got)}; ms per LM iteration "
+        f"baked {ms_baked:.4f}, unbaked {ms_unbaked:.4f} [{smi_line}]")
+    if not (per_solve["unbaked"] > 0 and per_solve["unbaked_and_first_baked"] == 2 * per_solve["unbaked"]
+            and per_solve["second_baked"] == per_solve["unbaked"]):
+        raise AssertionError(f"baked {backend} world 1: all-reduces {per_solve}; a baked solve counts the unbaked one's")
+    if not (_same_bits(got, want) and _same_bits(again, got) and got.n_devices == 1):
+        raise AssertionError(f"baked {backend} world 1: the baked solves are not the unbaked one bit for bit")
+    if device.type == "cuda":
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1, rank=0)
+        try:
+            try:
+                solve(problem, cam9, X0, baked, mesh=make_obs_mesh(device))
+            except ValueError as e:
+                log(f"baked gloo world 1 on the card raises ValueError, as it must: {e}")
+            else:
+                raise AssertionError("baked gloo on CUDA tensors solved instead of raising ValueError")
+        finally:
+            dist.destroy_process_group()
+
+
+def baked_phase(device, smi_line, static_volume):
+    """bake_problem=True on the card: the canonical problem (kernel 1 inside
+    the head graph) to convergence, a second solve on the cached graphs,
+    timed at a fixed iteration count; 'cg' and 'schur_cg' on it; the
+    constrained sparse static-marker problem; a world-size-1 NCCL mesh and
+    gloo's refusal. Returns kernel 1's launches over the phase's solves."""
+    from caliscope_tpu_torch.solvers import bundle
+    from caliscope_tpu_torch.solvers import fused_schur as FS
+
+    problem, cam9, X0, _rows = canonical_dense_problem(device)
+    solve = SolveLog()
+    FS.schur_s_rhs.launches = 0  # counts from here on are the baked phase's
+    _want, got, runner = baked_vs_unbaked(device, solve, problem, cam9, X0, bundle.BAConfig(), "canonical, to convergence")
+    graphs, cached = runner.graphs, dict(problem._baked_runners)
+    n0 = FS.schur_s_rhs.launches
+    again = solve(problem, cam9, X0, bundle.BAConfig(bake_problem=True))
+    reused = problem._baked_runners == cached and runner.graphs is graphs and runner.solves == 2
+    log(f"baked canonical, a second solve: {again.n_iterations} LM iterations, kernel 1 launches "
+        f"{FS.schur_s_rhs.launches - n0}, the cached graphs replayed (no capture): {reused}, bit-equal to the first "
+        f"{_same_bits(again, got)}")
+    kernel_path = got.fused_schur or device.type != "cuda"  # the CPU (a rehearsal) takes the plain version
+    if not (kernel_path and reused and _same_bits(again, got)
+            and FS.schur_s_rhs.launches - n0 == (again.n_iterations if again.fused_schur else 0)):
+        raise AssertionError("baked canonical: the second solve did not replay the cached graphs with kernel 1")
+    baked_timing(device, smi_line, solve, problem, cam9, X0)
+    for solver in ("cg", "schur_cg"):
+        baked_vs_unbaked(device, solve, problem, cam9, X0, bundle.BAConfig(solver=solver), f"canonical, solver {solver}")
+    sproblem, scam9, sX0 = static_volume.ba_problem()
+    if not (isinstance(sproblem, bundle.BAProblem) and sproblem.n_constraints):
+        raise AssertionError("baked: the static-marker problem is not constrained on the sparse row layout")
+    _w, sgot, _r = baked_vs_unbaked(device, solve, sproblem, scam9, sX0, bundle.BAConfig(solver="schur"),
+                                    "constrained static markers (sparse rows, 'schur' and its CG)")
+    if not sgot.cg_iterations:
+        raise AssertionError("baked: the constrained static-marker solve ran no CG")
+    baked_sharded(device, smi_line, solve, problem, cam9, X0)
+    launches = FS.schur_s_rhs.launches
+    log(f"baked: kernel 1 launches {launches} for {solve.schur_solves} Schur solves in {len(solve.results)} solves "
+        f"[{smi_line}]")
+    if launches != solve.schur_solves:
+        raise AssertionError(f"baked: kernel 1 launched {launches} times for {solve.schur_solves} Schur solves")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Workspace phase: a user's project folder of recordings, through the CLI,
 # to a calibrated rig and a reconstruction
 # ---------------------------------------------------------------------------
@@ -4384,7 +4637,7 @@ def main() -> int:
     pipe_launches, pipe_stages, ring, ring_ip = pipeline_phase(device, smi_line)
     log(f"pipeline phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    constrained_launches = constrained_phase(device, smi_line, pipe_stages, ring, ring_ip, filtered)
+    constrained_launches, static_volume = constrained_phase(device, smi_line, pipe_stages, ring, ring_ip, filtered)
     log(f"constrained and sparse pipelines phase: {time.perf_counter() - t0:.2f} s")
     entry["launches"] = launches + pipe_launches + constrained_launches
     entry["launches_by_path"] = {
@@ -4404,6 +4657,12 @@ def main() -> int:
     log(f"vertical and sharded phase: {time.perf_counter() - t0:.2f} s")
     entry["launches"] += sharded_launches
     entry["launches_by_path"]["sharded"] = sharded_launches
+    t0 = time.perf_counter()
+    baked_launches = baked_phase(device, smi_line, static_volume)
+    del static_volume
+    log(f"baked phase: {time.perf_counter() - t0:.2f} s")
+    entry["launches"] += baked_launches
+    entry["launches_by_path"]["baked"] = baked_launches
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ws_") as tmp:
         t0 = time.perf_counter()
         ws_launches, ws_schur, ws_checks, handoff = workspace_phase(device, smi_line, tmp)
@@ -4420,7 +4679,7 @@ def main() -> int:
     entry["launches_by_path"]["decode"] = 0
     for i, e in enumerate(detect_entries):
         e["launches_by_path"] = ({"detection_slice": e["launches"]} | {path: n[i] for path, n in intr_launches.items()}
-                                 | {"markerless": 0, "sharded": 0, "workspace": ws_launches[i], "gui": gui_launches[i],
+                                 | {"markerless": 0, "sharded": 0, "baked": 0, "workspace": ws_launches[i], "gui": gui_launches[i],
                                     "decode": decode_launches[i]})
         e["launches"] = sum(e["launches_by_path"].values())
         e["launches_outside_main_paths"] = ({f"workspace {check}": n[i] for check, n in ws_checks.items()}

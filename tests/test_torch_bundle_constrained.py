@@ -189,7 +189,7 @@ def test_dense_and_sparse_layouts_agree(case):
 def test_refusals_on_constrained_problems(case):
     """schur_cg is reprojection-only; the fused Schur kernel takes neither
     constrained nor sparse problems, and asking for it raises instead of
-    skipping it; baking the problem is not ported; without a process group
+    skipping it; a baked solve is the unbaked one; without a process group
     shard='always' solves on a single placement, and a mesh must be a
     parallel.Mesh."""
     rig, _con, problems = case
@@ -203,7 +203,9 @@ def test_refusals_on_constrained_problems(case):
     got = TB.lm_solve(problems["dense"][1], rig[6], rig[7], TB.BAConfig(solver="schur", max_iter=2))
     assert not got.fused_schur and FS.schur_s_rhs.launches == launches
     assert TB.lm_solve(problems["sparse"][1], rig[6], rig[7], TB.BAConfig(shard="always", max_iter=2)).n_devices == 1
-    with pytest.raises(NotImplementedError, match="item 24b"):
-        TB.lm_solve(problems["sparse"][1], rig[6], rig[7], TB.BAConfig(bake_problem=True))
+    baked = TB.lm_solve(problems["sparse"][1], rig[6], rig[7], TB.BAConfig(bake_problem=True, max_iter=2))
+    unbaked = TB.lm_solve(problems["sparse"][1], rig[6], rig[7], TB.BAConfig(max_iter=2))
+    np.testing.assert_array_equal(baked.cam9, unbaked.cam9)
+    assert torch.equal(baked.X, unbaked.X) and baked.cg_iterations == unbaked.cg_iterations
     with pytest.raises(TypeError, match="Mesh"):
         TB.lm_solve(problems["sparse"][1], rig[6], rig[7], mesh=object())
