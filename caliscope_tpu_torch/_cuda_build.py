@@ -5,7 +5,8 @@ compiled with nvcc for sm_90a into a shared library under
 `caliscope_tpu_torch/_build/` (named by a hash of the source and the flags,
 link flags included, so a changed source is rebuilt and an unchanged one is
 reused) and loaded with ctypes. A source that calls a CUDA library (the
-nvJPEG shim) names it in LINK_FLAGS. nvcc is looked for under CUDA_HOME / CUDA_PATH, on PATH, and
+nvJPEG shim; the window gather, which encodes its TMA tensor maps with
+libcuda's cuTensorMapEncodeTiled) names it in LINK_FLAGS. nvcc is looked for under CUDA_HOME / CUDA_PATH, on PATH, and
 under /usr/local/cuda. Nothing here runs when the package is imported.
 """
 
@@ -31,7 +32,7 @@ NVCC_FLAGS = (
 KERNELS = ("schur_s_rhs", "ccl", "corner_response", "extract_windows")
 # every source under csrc/: the kernels and the shims over CUDA's libraries
 SOURCES = KERNELS + ("nvjpeg_decode",)
-LINK_FLAGS = {"nvjpeg_decode": ("-lnvjpeg",)}
+LINK_FLAGS = {"nvjpeg_decode": ("-lnvjpeg",), "extract_windows": ("-lcuda",)}
 
 # source name -> nvcc's output and the seconds of the build this process ran;
 # "" and 0.0 for a library that was found already built

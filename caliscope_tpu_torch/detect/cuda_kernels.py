@@ -21,11 +21,23 @@ csrc/corner_response.cu and csrc/extract_windows.cu (built with nvcc at
 first use, bound with ctypes); on CPU tensors, and only there, they compute
 the plain versions. They raise on anything the kernels cannot take, on
 either device.
+
+The window gather has two paths in its kernel, both hand-written: TMA tile
+loads and bulk stores where the frames allow them, and warp-per-row copies
+for the rest. `tma_stages` picks one by shape and alignment;
+`extract_windows.launches` counts every launch and
+`extract_windows.tma_launches` the TMA path's.
+Its wrapper does only the host work a launch needs: one quick test of its
+inputs (`_fits`; the full checks, with their messages, run only when it
+fails), the frames' device made current by the C launch and only if it is
+not, and one packed argument block.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import struct
 
 import numpy as np
 import torch
@@ -55,7 +67,7 @@ def _library(name: str):
             if bad:
                 raise RuntimeError(f"corner_response library and wrapper disagree on tap {bad - 1}")
         else:
-            _cuda_build.bind(lib, name, [p, p, p, p, i, i, i, i, i, p])
+            _cuda_build.bind(lib, name, [ctypes.c_char_p])  # one packed ExtractWindowsArgs
         _libs[name] = lib
     return _libs[name]
 
@@ -164,6 +176,51 @@ def extract_windows_plain(frames, yi, xi, win: int):
     return frames[b, y[:, :, None, None] + ar[:, None], x[:, :, None, None] + ar[None, :]]
 
 
+# csrc/extract_windows.cu's TMA path: tile stages a block at most, the
+# bytes its stages and packed window may take, their alignment, TMA's
+# largest box side, the words a box row has beyond its window
+TMA_MAX_STAGES = 2
+TMA_RING_BYTES = 112 * 1024
+TMA_STAGE_ALIGN = 128
+TMA_MAX_BOX = 256
+TMA_PAD = 4
+# the C launch's ExtractWindowsArgs: frames, yi, xi, out, stream; B, Hp, Wp, K, win, stages, device
+_ARGS = struct.Struct("=5Q7i4x")
+_WORDS = (torch.float32, torch.int32)
+
+
+def _aligned(nbytes: int) -> int:
+    return -(-nbytes // TMA_STAGE_ALIGN) * TMA_STAGE_ALIGN
+
+
+@functools.lru_cache(maxsize=None)
+def _stages_of(Wp: int, win: int) -> int:
+    box = win + TMA_PAD
+    if Wp % 4 or win % 4 or box > min(Wp, TMA_MAX_BOX):
+        return 0
+    free = TMA_RING_BYTES - _aligned(4 * win * win)
+    return max(0, min(TMA_MAX_STAGES, free // _aligned(4 * box * win)))
+
+
+def tma_stages(Wp: int, win: int, address: int) -> int:
+    """The tile stages of the window gather's TMA path for frames Wp words
+    wide whose data start at byte `address`, and win x win windows; 0 where
+    TMA cannot copy them and the rows path runs. TMA needs a row stride of a
+    multiple of 16 bytes (Wp % 4 == 0), boxes that start on a 16-byte
+    boundary with rows of a multiple of 16 bytes (win % 4 == 0, and a box
+    TMA_PAD words wider than the window), box sides of at most 256 and
+    within the frame, and a 16-byte aligned base; the kernel, a tile stage
+    beside the packed window in TMA_RING_BYTES (win <= 116). A function of
+    these three numbers only."""
+    return 0 if address % 16 else _stages_of(Wp, win)
+
+
+def windows_path(frames, win: int) -> str:
+    """"tma" or "rows": the path of csrc/extract_windows.cu that `frames`
+    (B, Hp, Wp) and win x win windows take."""
+    return "tma" if tma_stages(frames.shape[2], win, frames.data_ptr()) else "rows"
+
+
 def _check_windows(frames, yi, xi, win):
     fn = "extract_windows"
     _check_tensor(fn, "frames", frames, (torch.float32, torch.int32), 3)
@@ -177,23 +234,52 @@ def _check_windows(frames, yi, xi, win):
     return B, Hp, Wp, yi.shape[1]
 
 
+def _fits(frames, yi, xi, win):
+    """The wrapper's quick test of its inputs: (B, Hp, Wp, K), or None
+    where `_check_windows` might refuse them (same device, types, shapes,
+    contiguity and window size), so the full checks run only to name what
+    is wrong."""
+    try:
+        B, Hp, Wp = frames.shape
+        By, K = yi.shape
+    except (AttributeError, TypeError, ValueError):
+        return None
+    if (
+        frames.dtype in _WORDS and yi.dtype is torch.int32 and xi.dtype is torch.int32 and xi.shape == yi.shape
+        and By == B and B > 0 and K > 0 and type(win) is int and 0 < win <= Hp and win <= Wp
+        and frames.is_contiguous() and yi.is_contiguous() and xi.is_contiguous()
+        and (frames.is_cuda or frames.is_cpu) and frames.device == yi.device == xi.device
+    ):
+        return B, Hp, Wp, K
+    return None
+
+
 def extract_windows(frames, yi, xi, win: int):
     """(B, Hp, Wp) float32/int32 frames, (B, K) int32 seeds -> (B, K, win,
     win) windows in the frames' dtype, through the CUDA kernel for CUDA
     tensors, through `extract_windows_plain` for CPU tensors."""
-    B, Hp, Wp, K = _check_windows(frames, yi, xi, win)
-    if frames.device.type == "cpu":
-        return extract_windows_plain(frames, yi, xi, win)
-    lib = _library("extract_windows")
-    with torch.cuda.device(frames.device):
-        out = torch.empty((B, K, win, win), dtype=frames.dtype, device=frames.device)
-        err = lib.extract_windows_launch(
-            frames.data_ptr(), yi.data_ptr(), xi.data_ptr(), out.data_ptr(), B, Hp, Wp, K, win,
-            torch.cuda.current_stream(frames.device).cuda_stream,
-        )
-    _cuda_build.check_launch(lib, "extract_windows", err)
-    _cuda_build.count_launch(extract_windows, "launches")
+    shape = _fits(frames, yi, xi, win) if isinstance(frames, torch.Tensor) and frames.is_cuda else None
+    if shape is None:
+        shape = _check_windows(frames, yi, xi, win)
+        if frames.device.type == "cpu":
+            return extract_windows_plain(frames, yi, xi, win)
+    B, Hp, Wp, K = shape
+    lib = _libs.get("extract_windows") or _library("extract_windows")
+    index = frames.get_device()
+    out = frames.new_empty((B, K, win, win))
+    address = frames.data_ptr()
+    stages = tma_stages(Wp, win, address)
+    err = lib.extract_windows_launch(_ARGS.pack(
+        address, yi.data_ptr(), xi.data_ptr(), out.data_ptr(), torch._C._cuda_getCurrentRawStream(index),
+        B, Hp, Wp, K, win, stages, index,
+    ))
+    if err:
+        _cuda_build.check_launch(lib, "extract_windows", err)
+    with _cuda_build._count_lock:  # exact under the extraction's threads
+        extract_windows.launches += 1
+        extract_windows.tma_launches += stages > 0
     return out
 
 
 extract_windows.launches = 0  # kernel launches (CUDA inputs only) since import or the last reset
+extract_windows.tma_launches = 0  # of them, on the TMA path

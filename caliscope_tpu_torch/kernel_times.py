@@ -24,8 +24,12 @@ calls not waited for) and, from torch.profiler over 10 warm calls, the
 device time per launch of every GPU kernel the wrapper launched, by kernel
 name, with its launches per call (1 for each kernel here); for the window
 gathers also the one-call PyTorch yardstick (`library_ms`: the advanced-
-indexing gather on prebuilt indices, by CUDA events); and what ptxas
-reported for the kernels this process built (registers, spills).
+indexing gather on prebuilt indices, by CUDA events), the path the
+checkout's kernel took (`path`, where its wrapper has `windows_path`), and
+`host_steps_us`: what each host step of the checkout's window-gather
+wrapper costs alone (see `window_host_steps`), and the rows path's device
+time at the same shape (`rows_path_device_ms`); and what ptxas reported
+for the kernels this process built (registers, spills).
 """
 
 from __future__ import annotations
@@ -70,6 +74,109 @@ def host_ms(fn, reps=50):
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) * 1e3 / reps
+
+
+def _median_us(fn, reps=50, rounds=20):
+    """Median over `rounds` of perf_counter's microseconds a call over `reps`
+    calls of `fn`, the device synchronised between rounds (so a step that
+    launches never waits for a full launch queue)."""
+    import torch
+
+    fn()
+    samples = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        samples.append((time.perf_counter() - t0) * 1e6 / reps)
+    torch.cuda.synchronize()
+    return statistics.median(samples)
+
+
+def window_host_steps(CK, frames, yi, xi, win):
+    """Microseconds a call of each host step of the window-gather wrapper in
+    module `CK` (a checkout's detect/cuda_kernels.py), each step timed alone
+    (`_median_us`), and of the whole wrapper. The steps of the wrapper
+    before its TMA path (three `_check_tensor` in `_check_windows`, the device context,
+    `torch.empty`, `current_stream`, four `data_ptr`, the ctypes call with
+    ten arguments, `check_launch`, `count_launch`), and the ones that took
+    their place (`_fits`, `new_empty`, the raw stream, the packed
+    arguments) where the module has them. The launches made here are taken
+    back out of the wrapper's counters."""
+    import torch
+
+    from caliscope_tpu_torch import _cuda_build
+
+    wrapper = CK.extract_windows
+    counters = {name: getattr(wrapper, name) for name in ("launches", "tma_launches") if hasattr(wrapper, name)}
+    lib = CK._library("extract_windows")
+    B, Hp, Wp = frames.shape
+    K = yi.shape[1]
+    dev, index = frames.device, frames.get_device()
+    out = torch.empty((B, K, win, win), dtype=frames.dtype, device=dev)
+    ptrs = (frames.data_ptr(), yi.data_ptr(), xi.data_ptr(), out.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def context():
+        with torch.cuda.device(dev):
+            pass
+
+    steps = {
+        "check_windows": lambda: CK._check_windows(frames, yi, xi, win),
+        "check_tensor": lambda: CK._check_tensor("extract_windows", "frames", frames, (torch.float32, torch.int32), 3),
+        "device_context": context,
+        "torch_empty": lambda: torch.empty((B, K, win, win), dtype=frames.dtype, device=dev),
+        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "data_ptr_x4": lambda: (frames.data_ptr(), yi.data_ptr(), xi.data_ptr(), out.data_ptr()),
+        "check_launch": lambda: _cuda_build.check_launch(lib, "extract_windows", 0),
+        "count_launch": lambda: _cuda_build.count_launch(wrapper, "launches"),
+        "new_empty": lambda: frames.new_empty((B, K, win, win)),
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(index),
+        "current_device": lambda: torch._C._cuda_getDevice(),
+    }
+    if hasattr(CK, "_ARGS"):
+        stages = CK.tma_stages(Wp, win, ptrs[0])
+        packed = CK._ARGS.pack(*ptrs, stream, B, Hp, Wp, K, win, stages, index)
+        steps["fits"] = lambda: CK._fits(frames, yi, xi, win)
+        steps["tma_stages"] = lambda: CK.tma_stages(Wp, win, ptrs[0])
+        steps["pack_args"] = lambda: CK._ARGS.pack(*ptrs, stream, B, Hp, Wp, K, win, stages, index)
+        steps["ctypes_launch"] = lambda: lib.extract_windows_launch(packed)
+    else:
+        steps["ctypes_launch"] = lambda: lib.extract_windows_launch(*ptrs, B, Hp, Wp, K, win, stream)
+    steps["whole_wrapper"] = lambda: wrapper(frames, yi, xi, win)
+    result = {name: _median_us(fn) for name, fn in steps.items()}
+    for name, value in counters.items():
+        setattr(wrapper, name, value)
+    return result
+
+
+def rows_path_device_ms(CK, frames, yi, xi, win):
+    """Device ms a launch of the window gather's rows path at a shape its
+    wrapper sends to the TMA path (the C launch called with stages 0), by
+    torch.profiler: what the path rule weighs. None where the module has
+    one path."""
+    import torch
+
+    if not hasattr(CK, "_ARGS"):
+        return None
+    lib = CK._library("extract_windows")
+    B, Hp, Wp = frames.shape
+    K = yi.shape[1]
+    out = torch.empty((B, K, win, win), dtype=frames.dtype, device=frames.device)
+    args = CK._ARGS.pack(frames.data_ptr(), yi.data_ptr(), xi.data_ptr(), out.data_ptr(),
+                         torch.cuda.current_stream(frames.device).cuda_stream, B, Hp, Wp, K, win, 0, frames.get_device())
+
+    def launch():
+        err = lib.extract_windows_launch(args)
+        if err:
+            raise RuntimeError(f"extract_windows rows path: launch failed ({err})")
+
+    launch()
+    torch.cuda.synchronize()
+    if not torch.equal(out, CK.extract_windows_plain(frames, yi, xi, win)):
+        raise AssertionError("extract_windows rows path: differs from the plain version")
+    return sum(rec["ms"] * rec["launches"] for rec in device_ms_by_kernel(launch).values())
 
 
 def device_ms_by_kernel(fn, reps=10, tries=3):
@@ -164,6 +271,10 @@ def main() -> int:
         out[name] = {"ms": event_ms(fn), "host_ms": host_ms(fn), "gpu_kernels": device_ms_by_kernel(fn)}
     for name, args_ in (("extract_windows_atlas", atlas), ("extract_windows_corners", padded), ("extract_windows_chessboard_k512", chess)):
         out[name]["library_ms"] = event_ms(gather(*args_))
+        out[name]["host_steps_us"] = window_host_steps(CK, *args_)
+        if hasattr(CK, "windows_path"):
+            out[name]["path"] = CK.windows_path(args_[0], args_[3])
+            out[name]["rows_path_device_ms"] = rows_path_device_ms(CK, *args_)
     from caliscope_tpu_torch import _cuda_build
 
     out["ptxas"] = {

@@ -18,14 +18,17 @@ on any failed check. Phases:
    for the same work. The Schur kernel's S must be exactly symmetric and
    the same bits on a second run; kernels 2-4 must equal their plain
    versions bit for bit (torch.equal); the labeling cases say which of its
-   two paths each took and must cover both and every cluster size; every
+   two paths each took and must cover both and every cluster size, and so
+   do the window gather's (TMA and rows; tma_launches grows on the TMA
+   path only), with the host's time a call at its callers' shapes; every
    kernel reports its device time by GPU kernel under torch.profiler.
 4. Detection slice: 16 rendered 1280x720 views of a 5x7 ChArUco board (the
    recipe of bench.py's detection workload, warped in numpy) through
    CharucoTracker.get_points_batch on the card — corners found, accuracy
    against the known homographies, a repeated call, the card's result
    against the port's own CPU result on two frames, the kernels' launch
-   counts per device-program dispatch, wall time and a profile.
+   counts per device-program dispatch (every window gather on the TMA
+   path), wall time and a profile.
 5. BA slice: the canonical eight-camera bundle-adjustment problem
    (8 cameras, 35,000 points, 141,422 observations, 0.5 px noise; the
    recipe of bench.py, perturbed initial translations) through
@@ -699,7 +702,7 @@ def detect_kernel_phase(device, peaks, frames):
     rng = np.random.default_rng(5)
     on_card = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     counts = (CCL.connected_components.launches, CCL.connected_components.resident_launches,
-              CK.corner_response.launches, CK.extract_windows.launches)
+              CK.corner_response.launches, CK.extract_windows.launches, CK.extract_windows.tma_launches)
     imgs = on_card(frames[:_RUN_CHUNK]).to(torch.float32)  # one dispatch's frames
     B, H, W = imgs.shape
 
@@ -816,30 +819,48 @@ def detect_kernel_phase(device, peaks, frames):
     )
     resp_entry["device_ms"] = sum(rec["ms"] for rec in resp_passes.values())
 
-    # ---- kernel 4: windows, at both callers' shapes, a ragged frame, and an
-    # odd K whose windows (784 words) leave a block's last pass partial
-    # (seeds: random, every clip corner, and a few outside the frame, which
-    # both versions clamp)
-    def seeds(Hp, Wp, K, win):
-        yi = rng.integers(0, Hp - win + 1, size=(B, K)).astype(np.int32)
-        xi = rng.integers(0, Wp - win + 1, size=(B, K)).astype(np.int32)
+    # ---- kernel 4: windows, on both paths of the kernel: at both callers'
+    # shapes and the chessboard's (K = 512 at B = 1), an odd K (TMA); a
+    # ragged frame, win 17, a frame of Wp % 4 != 0 (a 1366-wide frame padded
+    # by 14, as the subpixel stage pads) and an unaligned base (rows). Seeds:
+    # random, every clip corner, and a few outside the frame, which both
+    # versions clamp. The path each shape took is the rule's, and
+    # tma_launches grows on the TMA path only
+    def seeds(Bs, Hp, Wp, K, win):
+        yi = rng.integers(0, Hp - win + 1, size=(Bs, K)).astype(np.int32)
+        xi = rng.integers(0, Wp - win + 1, size=(Bs, K)).astype(np.int32)
         yi[:, :6] = [0, 0, Hp - win, Hp - win, -7, Hp]
         xi[:, :6] = [0, Wp - win, 0, Wp - win, Wp + 3, -1]
         return on_card(yi), on_card(xi)
 
+    from caliscope_tpu_torch.kernel_times import host_ms
+
     padded = F.pad(imgs[:, None], (14, 14, 14, 14), mode="replicate")[:, 0].contiguous()  # the subpixel stage's frames
     atlas = on_card(rng.integers(0, 2**31 - 1, size=(B, H + H // 2 + H // 4 + 96, W)).astype(np.int32))  # the patch atlas's shape
+    wide = on_card(rng.uniform(0, 255, size=(2, 768 + 28, 1366 + 28)).astype(np.float32))
+    unaligned = torch.zeros(2 * 40 * 64 + 1, dtype=torch.float32, device=device)[1:].view(2, 40, 64)
+    unaligned.copy_(on_card(rng.uniform(0, 255, size=(2, 40, 64)).astype(np.float32)))
     win_results = {}
-    for what, src, K, win in (("corner windows", padded, 256, 28), ("atlas patches", atlas, 64, 96), ("ragged", padded[:2, :97, :131].contiguous(), 8, 28),
-                              ("odd K", padded[:3], 37, 28)):
-        yi, xi = seeds(src.shape[1], src.shape[2], K, win)
-        yi, xi = yi[: src.shape[0]].contiguous(), xi[: src.shape[0]].contiguous()
+    for what, src, K, win, path in (
+        ("corner windows", padded, 256, 28, "tma"), ("atlas patches", atlas, 64, 96, "tma"),
+        ("chessboard K=512", padded[:1].contiguous(), 512, 28, "tma"), ("odd K", padded[:3], 37, 28, "tma"),
+        ("ragged", padded[:2, :97, :131].contiguous(), 8, 28, "rows"), ("win 17", padded[:2], 16, 17, "rows"),
+        ("Wp % 4 != 0", wide, 64, 28, "rows"), ("unaligned base", unaligned, 8, 8, "rows"),
+    ):
+        yi, xi = seeds(src.shape[0], src.shape[1], src.shape[2], K, win)
+        if CK.windows_path(src, win) != path:
+            raise AssertionError(f"extract_windows {what}: the rule picks the {CK.windows_path(src, win)} path, not {path}")
+        tma_before = CK.extract_windows.tma_launches
         got, want = CK.extract_windows(src, yi, xi, win), CK.extract_windows_plain(src, yi, xi, win)
         torch.cuda.synchronize()
+        if CK.extract_windows.tma_launches - tma_before != (path == "tma"):
+            raise AssertionError(f"extract_windows {what}: tma_launches grew by {CK.extract_windows.tma_launches - tma_before} "
+                                 f"on the {path} path")
         if got.dtype != src.dtype or not torch.equal(got, want):
             raise AssertionError(f"extract_windows {what}: windows differ from the plain version's")
-        log(f"kernel extract_windows {what} {tuple(src.shape)} {src.dtype} K={K} win={win}: windows equal the plain version's")
-        if what in ("ragged", "odd K"):
+        log(f"kernel extract_windows {what} {tuple(src.shape)} {src.dtype} K={K} win={win}: {path} path, windows equal the "
+            f"plain version's (torch.equal)")
+        if what not in ("corner windows", "atlas patches", "chessboard K=512"):
             continue
         # the one-call yardstick: the advanced-indexing gather on prebuilt indices
         ar = torch.arange(win, device=device)
@@ -851,26 +872,31 @@ def detect_kernel_phase(device, peaks, frames):
         win_results[what] = dict(
             device_ms=sum(rec["ms"] for rec in passes.values()),
             ms=time_ms(lambda: CK.extract_windows(src, yi, xi, win)),
+            host_ms=host_ms(lambda: CK.extract_windows(src, yi, xi, win)),
             plain_ms=time_ms(lambda: CK.extract_windows_plain(src, yi, xi, win)),
             library_ms=time_ms(lambda: src[bi, yy, xx]),
-            bytes=B * K * (2 * 4 * win * win + 8), shape=f"{tuple(src.shape)} {str(src.dtype).split('.')[-1]}, K={K}, win={win}",
+            bytes=src.shape[0] * K * (2 * 4 * win * win + 8), shape=f"{tuple(src.shape)} {str(src.dtype).split('.')[-1]}, K={K}, win={win}",
         )
-    a, c = win_results["atlas patches"], win_results["corner windows"]
+        log(f"kernel extract_windows {what}: {win_results[what]['host_ms'] * 1e3:.2f} us of host time a call (perf_counter over 50 "
+            f"calls not waited for), {win_results[what]['ms'] * 1e3:.2f} us a call by CUDA events")
+    caller_keys = ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    callers = {}
+    for what, r in win_results.items():
+        e = bound_entry("extract_windows", "caliscope_tpu_torch/csrc/extract_windows.cu", "caliscope_tpu/detect/pallas_kernels.py:203",
+                        0.0, r["ms"], r["plain_ms"], r["library_ms"], r["bytes"], 0, peaks, r["shape"])
+        callers[what] = {k: e.get(k, r.get(k)) for k in caller_keys} | {"path": "tma", "shape": r["shape"]}
+    a = win_results["atlas patches"]
     win_entry = bound_entry(
         "extract_windows", "caliscope_tpu_torch/csrc/extract_windows.cu", "caliscope_tpu/detect/pallas_kernels.py:203", 0.0,
         a["ms"], a["plain_ms"], a["library_ms"], a["bytes"], 0, peaks, a["shape"],
     )
-    corner_caller = bound_entry(
-        "extract_windows", win_entry["source"], win_entry["replaces"], 0.0,
-        c["ms"], c["plain_ms"], c["library_ms"], c["bytes"], 0, peaks, c["shape"],
-    )
-    win_entry["device_ms"] = a["device_ms"]
-    corner_caller["device_ms"] = c["device_ms"]
-    win_entry["corner_windows_caller"] = {k: corner_caller[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    win_entry["device_ms"], win_entry["host_ms"], win_entry["path"] = a["device_ms"], a["host_ms"], "tma"
+    win_entry["corner_windows_caller"] = callers["corner windows"]
+    win_entry["chessboard_k512_caller"] = callers["chessboard K=512"]
 
     # comparing and timing launches are not a path's
     (CCL.connected_components.launches, CCL.connected_components.resident_launches,
-     CK.corner_response.launches, CK.extract_windows.launches) = counts
+     CK.corner_response.launches, CK.extract_windows.launches, CK.extract_windows.tma_launches) = counts
     return [ccl_entry, resp_entry, win_entry]
 
 
@@ -905,7 +931,7 @@ def detect_slice_phase(device, ch, frames, truths, smi_line):
 
     # the main path's run: counts from 0 just before, read just after
     CCL.connected_components.launches = CK.corner_response.launches = CK.extract_windows.launches = 0
-    CCL.connected_components.resident_launches = 0
+    CCL.connected_components.resident_launches = CK.extract_windows.tma_launches = 0
     before = tracker.dispatches
     sync(device)
     t0 = time.perf_counter()
@@ -914,6 +940,7 @@ def detect_slice_phase(device, ch, frames, truths, smi_line):
     warm_s = time.perf_counter() - t0
     launches = (CCL.connected_components.launches, CK.corner_response.launches, CK.extract_windows.launches)
     resident = CCL.connected_components.resident_launches
+    TMA_LAUNCHES_BY_RUN["detection slice"] = tma = CK.extract_windows.tma_launches
     dispatches = tracker.dispatches - before
 
     n_found = sum(len(p) for p in packets)
@@ -930,6 +957,9 @@ def detect_slice_phase(device, ch, frames, truths, smi_line):
         raise AssertionError(f"detection: launches (ccl, response, windows) {launches} for {dispatches} dispatches")
     if resident != dispatches:
         raise AssertionError(f"detection: {resident} of {dispatches} labelings of 720p frames went through the resident kernel")
+    if tma != launches[2]:
+        raise AssertionError(f"detection: {tma} of {launches[2]} window gathers took the TMA path (the atlas and corner windows "
+                             "of 720p frames must)")
     cpu = CharucoTracker(ch, device="cpu").get_points_batch(frames[:2], 0)
     _same_packets(packets[:2], cpu, GPU_VS_CPU_ATOL_PX, "the card against the port on the CPU")
     gap = max(float(np.abs(g.img_loc - w.img_loc).max()) for g, w in zip(packets[:2], cpu))
@@ -937,7 +967,8 @@ def detect_slice_phase(device, ch, frames, truths, smi_line):
         f"detection slice: {len(frames)} frames {frames.shape[2]}x{frames.shape[1]} on {device}: {n_found} of "
         f"{len(frames) * ch.n_corners} corners, error max {errs.max():.4f} px mean {errs.mean():.4f} px; first call "
         f"{first_s:.3f} s, warm call {warm_s:.4f} s = {len(frames) / warm_s:.1f} frames/s [{smi_line}]; {dispatches} "
-        f"dispatches, launches ccl {launches[0]} (resident {resident}) response {launches[1]} windows {launches[2]}; the card's packets "
+        f"dispatches, launches ccl {launches[0]} (resident {resident}) response {launches[1]} windows {launches[2]} (TMA path "
+        f"{tma}); the card's packets "
         f"within {gap:.2e} px of the port's CPU packets on 2 frames"
     )
     times = []
@@ -1937,7 +1968,10 @@ def recorded_gathers(store):
     atlas gather, detect/corners.py's corner windows) through a recorder:
     `store["calls"]` counts their CUDA calls, and `store[(frames shape, K,
     win)]` keeps the inputs of the first CUDA call of each shape, so each
-    shape a path gave the kernel can be held against the plain version."""
+    shape a path gave the kernel can be held against the plain version;
+    `store["tma_calls"]` counts the calls the path rule sent to the TMA
+    path (a clone keeps its shape, not its alignment, so the rule is read
+    on the caller's tensor)."""
     from caliscope_tpu_torch.detect import corners as DC
     from caliscope_tpu_torch.detect import cuda_kernels as CK
     from caliscope_tpu_torch.detect import kernels as DK
@@ -1945,8 +1979,10 @@ def recorded_gathers(store):
     def record(frames, yi, xi, win):
         if frames.is_cuda:
             key = (tuple(frames.shape), int(yi.shape[1]), int(win))
+            path = CK.windows_path(frames, win)
             with _record_lock:
                 store["calls"] = store.get("calls", 0) + 1
+                store["tma_calls"] = store.get("tma_calls", 0) + (path == "tma")
                 if key not in store:
                     store[key] = (frames.clone(), yi.clone(), xi.clone(), win)
         return CK.extract_windows(frames, yi, xi, win)
@@ -1959,10 +1995,18 @@ def recorded_gathers(store):
         DC.extract_windows, DK.extract_windows = saved
 
 
+# the TMA-path launches of kernel 4 in each recorded run, by the run's name
+# (check_recorded_gathers), for the kernels line
+TMA_LAUNCHES_BY_RUN = {}
+
+
 def check_recorded_gathers(store, launches, what):
     """Every kernel-4 launch of the run went through the recorder, and the
-    kernel equals its plain version (torch.equal) at each shape recorded.
-    Returns the shapes, "(B, K, win) on (B, H, W)"."""
+    kernel equals its plain version (torch.equal) at each shape recorded,
+    on the path the rule picks there (the recorded frames are fresh
+    allocations, so aligned as the callers' are). Keeps the run's TMA
+    launches in TMA_LAUNCHES_BY_RUN[what]. Returns the shapes, "(B, K,
+    win) on (B, H, W) path"."""
     import torch
 
     from caliscope_tpu_torch.detect import cuda_kernels as CK
@@ -1971,12 +2015,14 @@ def check_recorded_gathers(store, launches, what):
         raise AssertionError(f"{what}: {launches} window-gather launches, {store.get('calls', 0)} recorded")
     shapes = []
     for key, args in store.items():
-        if key == "calls":
+        if not isinstance(key, tuple):
             continue
         if not torch.equal(CK.extract_windows(*args), CK.extract_windows_plain(*args)):
             raise AssertionError(f"{what}: extract_windows at {key} differs from the plain version")
-        shapes.append(f"({key[0][0]}, {key[1]}, {key[2]}) on {key[0]}")
-    log(f"{what}: extract_windows equal to the plain version (torch.equal) at every shape the run gave it: " + ", ".join(shapes))
+        shapes.append(f"({key[0][0]}, {key[1]}, {key[2]}) on {key[0]} {CK.windows_path(args[0], args[3])}")
+    TMA_LAUNCHES_BY_RUN[what] = store.get("tma_calls", 0)
+    log(f"{what}: extract_windows equal to the plain version (torch.equal) at every shape the run gave it: " + ", ".join(shapes)
+        + f"; {TMA_LAUNCHES_BY_RUN[what]} of its {launches} launches on the TMA path")
     return shapes
 
 
@@ -3810,7 +3856,7 @@ def workspace_phase(device, smi_line, tmp):
     dispatches = sum(t.dispatches for t in trackers)
     peak = torch.cuda.max_memory_allocated(device)
     recorded_mib = sum(a.numel() * a.element_size() for sub in (main_inputs["ccl"], main_inputs["response"], main_inputs["windows"])
-                       for k, args in sub.items() if k != "calls" for a in args if hasattr(a, "numel")) / 2**20
+                       for k, args in sub.items() if isinstance(k, tuple) for a in args if hasattr(a, "numel")) / 2**20
 
     # ---- multicam extraction with 1 and 4 threads, and the streamer: gates of
     # their own, their launches counted apart from the main path's ------------
@@ -4685,6 +4731,17 @@ def main() -> int:
         e["launches_outside_main_paths"] = ({f"workspace {check}": n[i] for check, n in ws_checks.items()}
                                             | {f"decode {check}": n[i] for check, n in decode_checks.items()})
         e["tracker_shapes"] = tracker_shapes[e["name"]]
+    # kernel 4's TMA-path launches: those of the main paths' runs (the
+    # detection slice's count, the others' recorders), and the checks'
+    main_runs = ("detection slice", "intrinsics (b)", "chessboard", "aruco", "workspace CLI steps", "gui", "decode extraction")
+    win_entry = detect_entries[2]
+    win_entry["tma_launches_by_path"] = {run: TMA_LAUNCHES_BY_RUN[run] for run in main_runs}
+    win_entry["tma_launches"] = sum(win_entry["tma_launches_by_path"].values())
+    win_entry["tma_launches_outside_main_paths"] = {run: n for run, n in TMA_LAUNCHES_BY_RUN.items() if run not in main_runs}
+    if not 0 < win_entry["tma_launches"] <= win_entry["launches"]:
+        raise AssertionError(f"extract_windows: {win_entry['tma_launches']} TMA-path launches of {win_entry['launches']}")
+    log(f"kernel extract_windows: {win_entry['tma_launches']} of its {win_entry['launches']} main-path launches on the TMA path "
+        f"{json.dumps(win_entry['tma_launches_by_path'])}")
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, the kernels' build included")
     log(json.dumps({"kernels": [entry, *detect_entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -233,6 +233,56 @@ def test_windows_wrapper_raises_on_what_the_kernel_cannot_take(rng, case):
         CK.extract_windows(*args)
 
 
+BAD_WINDOW_CASES = ["float64_frames", "int64_seeds", "non_contiguous_frames", "non_contiguous_seeds", "seeds_off_device",
+                    "frames_off_device", "seed_shapes_differ", "window_larger_than_frame", "not_a_tensor"]
+
+
+@pytest.mark.parametrize("case", BAD_WINDOW_CASES)
+def test_windows_quick_check_passes_nothing_the_full_checks_refuse(rng, case):
+    args, _ = _bad_windows(rng)[case]
+    assert CK._fits(*args) is None
+
+
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_windows_quick_check_passes_what_the_kernel_takes(rng, case):
+    img, yi, xi, win = _window_case(rng, case)
+    assert CK._fits(t(img), t(yi), t(xi), win) == (*img.shape, yi.shape[1])
+
+
+def _unaligned(values, device="cpu"):
+    """`values` (float32) in a contiguous tensor on `device` whose data
+    start one word past a 16-byte boundary."""
+    out = torch.zeros(values.size + 1, dtype=torch.float32, device=device)[1:].view(values.shape)
+    return out.copy_(t(values))
+
+
+# (frames shape, dtype, win) -> the kernel's path: each caller's shape on
+# the TMA path; what TMA cannot copy on the rows path
+WINDOW_PATH_CASES = {
+    "atlas": (((8, 1356, 1280), torch.int32, 96), "tma"),
+    "corner_windows": (((8, 748, 1308), torch.float32, 28), "tma"),
+    "chessboard_k512": (((1, 748, 1308), torch.float32, 28), "tma"),
+    "aruco_tracker_atlas": (((1, 1356, 1280), torch.int32, 96), "tma"),
+    "wp_not_multiple_of_4_1366_wide": (((1, 796, 1394), torch.float32, 28), "rows"),
+    "ragged_frame": (((2, 97, 131), torch.float32, 28), "rows"),
+    "win_not_multiple_of_4": (((2, 200, 300), torch.float32, 17), "rows"),
+    "win_above_256": (((1, 300, 300), torch.int32, 260), "rows"),
+    "two_stages_do_not_fit": (((1, 300, 300), torch.int32, 120), "rows"),
+    "unaligned_base": (((2, 40, 64), "unaligned", 8), "rows"),
+    "aligned_twin_of_unaligned": (((2, 40, 64), torch.float32, 8), "tma"),
+}
+
+
+@pytest.mark.parametrize("case", list(WINDOW_PATH_CASES))
+def test_windows_path_rule(case):
+    (shape, dtype, win), path = WINDOW_PATH_CASES[case]
+    frames = _unaligned(np.zeros(shape, np.float32)) if dtype == "unaligned" else torch.empty(shape, dtype=dtype)
+    assert frames.is_contiguous()
+    assert CK.windows_path(frames, win) == path
+    stages = CK.tma_stages(frames.shape[2], win, frames.data_ptr())
+    assert (stages > 0) == (path == "tma")
+
+
 @pytest.mark.parametrize("case", ["float64", "non_contiguous", "two_dims", "not_a_tensor"])
 def test_response_wrapper_raises_on_what_the_kernel_cannot_take(rng, case):
     f = torch.rand(2, 40, 50)
@@ -288,12 +338,28 @@ def test_compiled_response_matches_plain_on_cuda(rng):
 
 @pytest.mark.cuda
 def test_compiled_windows_match_plain_on_cuda(rng):
+    """Both paths: the window cases (TMA) and, on the rows path, a ragged
+    frame, win 17, a 1366-wide frame padded by 14 and an unaligned base;
+    tma_launches grows on the TMA path only."""
     _need_cuda()
-    for case in WINDOW_CASES:
-        img, yi, xi, win = _window_case(rng, case)
-        f, y, x = t(img).cuda(), t(yi).cuda(), t(xi).cuda()
-        before = CK.extract_windows.launches
+    cases = [_window_case(rng, case) for case in WINDOW_CASES]
+    for (B, Hp, Wp), win in (((2, 97, 131), 28), ((2, 200, 300), 17), ((1, 796, 1394), 28)):
+        img = rng.uniform(0, 255, size=(B, Hp, Wp)).astype(np.float32)
+        seeds = [rng.integers(-3, n - win + 4, size=(B, 9)).astype(np.int32) for n in (Hp, Wp)]
+        cases.append((img, *seeds, win))
+    img = rng.uniform(0, 255, size=(2, 40, 64)).astype(np.float32)
+    unaligned = (img, *(rng.integers(0, 33, size=(2, 5)).astype(np.int32) for _ in range(2)), 8)
+    paths = []
+    for case in cases + [unaligned]:
+        img, yi, xi, win = case
+        f = _unaligned(img, "cuda") if case is unaligned else t(img).cuda()
+        y, x = t(yi).cuda(), t(xi).cuda()
+        path = CK.windows_path(f, win)
+        paths.append(path)
+        before, tma_before = CK.extract_windows.launches, CK.extract_windows.tma_launches
         got = CK.extract_windows(f, y, x, win)
         torch.cuda.synchronize()
         assert CK.extract_windows.launches == before + 1
+        assert CK.extract_windows.tma_launches == tma_before + (path == "tma")
         assert got.dtype == f.dtype and torch.equal(got, CK.extract_windows_plain(f, y, x, win))
+    assert paths == ["tma"] * len(WINDOW_CASES) + ["rows"] * 4

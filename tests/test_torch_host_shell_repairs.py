@@ -94,7 +94,7 @@ def test_different_kernels_still_build_together(stub_nvcc):
 
 
 def test_launch_counters_are_exact_under_threads():
-    counted = [(cuda_kernels.corner_response, ("launches",)), (cuda_kernels.extract_windows, ("launches",)),
+    counted = [(cuda_kernels.corner_response, ("launches",)), (cuda_kernels.extract_windows, ("launches", "tma_launches")),
                (ccl.connected_components, ("launches", "resident_launches")), (fused_schur.schur_s_rhs, ("launches",))]
     saved = [(fn, name, getattr(fn, name)) for fn, names in counted for name in names]
     interval = sys.getswitchinterval()
