@@ -21,6 +21,7 @@ from typing import Optional
 
 from caliscope_tpu_torch.media.video import FrameSource, read_video_properties
 from caliscope_tpu_torch.packets import PixelFormat, TrackedFrame
+from caliscope_tpu_torch.tracing import span
 from caliscope_tpu_torch.tracker import Tracker
 
 logger = logging.getLogger(__name__)
@@ -193,27 +194,30 @@ class FramePacketStreamer:
                     time.sleep(0.02)
                     continue
                 t0 = time.perf_counter()
-                pkt = src.next_frame()
-                if pkt is None:
-                    if self.end_behavior == "loop":
-                        src.close()
-                        self._position = 0
-                        src = self._open_source(0)
-                        continue
-                    if self.end_behavior == "pause":
-                        self._pause.set()
-                        continue
-                    self._publish(None)  # end-of-stream sentinel
-                    break
-                self._position = pkt.frame_index + 1
-                if self.tracker is not None:
-                    points = self.tracker.get_points(pkt.frame, self.cam_id)
-                    self._publish(TrackedFrame(pkt, points))
-                else:
-                    self._publish(pkt)
+                with span("streamer.frame"):
+                    with span("streamer.read"):
+                        pkt = src.next_frame()
+                        if pkt is None and self.end_behavior == "loop":
+                            src.close()
+                            self._position = 0
+                            src = self._open_source(0)
+                            continue
+                    if pkt is None:
+                        if self.end_behavior == "pause":
+                            self._pause.set()
+                            continue
+                        self._publish(None)  # end-of-stream sentinel
+                        break
+                    self._position = pkt.frame_index + 1
+                    if self.tracker is not None:
+                        points = self.tracker.get_points(pkt.frame, self.cam_id)
+                        self._publish(TrackedFrame(pkt, points))
+                    else:
+                        self._publish(pkt)
                 elapsed = time.perf_counter() - t0
                 interval = 1.0 / max(self.fps, 1e-3)  # re-read: retargetable live
                 if elapsed < interval:
-                    time.sleep(interval - elapsed)
+                    with span("streamer.pace", requested_s=interval - elapsed):
+                        time.sleep(interval - elapsed)
         finally:
             src.close()

@@ -39,6 +39,7 @@ from caliscope_tpu_torch.exceptions import CalibrationError
 from caliscope_tpu_torch.media import colour
 from caliscope_tpu_torch.media.quicktime import CODEC_NAMES, RawQuickTimeWriter, conversion_hint, read_track
 from caliscope_tpu_torch.packets import FramePacket, PixelFormat
+from caliscope_tpu_torch.tracing import span
 
 logger = logging.getLogger(__name__)
 
@@ -262,7 +263,7 @@ class FrameSource:
 
     def next_frame(self) -> Optional[FramePacket]:
         """Next wanted frame, or None at end of stream."""
-        with self._lock:
+        with span("media.next_frame"), self._lock:
             while self._next_index < self._track.frame_count:
                 idx = self._next_index
                 self._next_index += 1

@@ -34,6 +34,7 @@ from caliscope_tpu_torch.exceptions import CalibrationError
 from caliscope_tpu_torch.observations import ImagePoints
 from caliscope_tpu_torch.scale import compute_depth_ratios
 from caliscope_tpu_torch.tasks import CancellationToken
+from caliscope_tpu_torch.tracing import span
 from caliscope_tpu_torch.volume import CaptureVolume
 
 logger = logging.getLogger(__name__)
@@ -109,16 +110,24 @@ class _Stage:
     done_pct: int  # progress percentage reported when this stage starts
     run: Callable[[_RunState], None]
 
+    @property
+    def span_name(self) -> str:
+        """The stage's span: `calibrate.` and its label in snake case."""
+        return "calibrate." + self.label.lower().replace(" ", "_")
+
 
 def _drive(stages: list[_Stage], state: _RunState, progress, token) -> None:
     """Walk the stage list: emit progress at entry, honour cancellation
-    between stages, run each stage against the shared state."""
-    for stage in stages:
-        if token is not None and token.is_cancelled:
-            raise InterruptedError("Calibration cancelled")
-        if progress is not None:
-            progress(stage.done_pct, stage.label)
-        stage.run(state)
+    between stages, run each stage against the shared state (a span each,
+    under the job's)."""
+    with span("calibrate.job"):
+        for stage in stages:
+            if token is not None and token.is_cancelled:
+                raise InterruptedError("Calibration cancelled")
+            if progress is not None:
+                progress(stage.done_pct, stage.label)
+            with span(stage.span_name):
+                stage.run(state)
     if progress is not None:
         progress(100, "Optimization complete")
 

@@ -64,6 +64,7 @@ CPU).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -89,6 +90,7 @@ from caliscope_tpu_torch.solvers.fused_schur import (
     schur_s_rhs,
     schur_s_rhs_plain,
 )
+from caliscope_tpu_torch.tracing import span
 
 # Free-intrinsics bounds: s in [0.5, 2], k1 in [-1, 1], k2 in [-2, 2].
 INTRINSIC_LOWER = np.array([0.5, -1.0, -2.0])
@@ -986,7 +988,9 @@ def _pcg(A_mv, M_inv, b, tol: float, max_iter: int, points_mesh=None):
     state = _pcg_start(M_inv, b, tol, points_mesh)
     for n in _cg_chunks(max_iter):
         state, running = _pcg_chunk(A_mv, M_inv, state, n, points_mesh)
-        if not bool(running):  # the one device->host read of a chunk
+        with span("ba.read"):
+            running = bool(running)  # the one device->host read of a chunk
+        if not running:
             break
     return state.x, state.it
 
@@ -1279,18 +1283,20 @@ def _lm_run(problem, plan, cam9, X, lb, ub, *, loss, f_scale, max_iter, ftol, xt
     gnorm = torch.tensor(float("inf"), dtype=dt, device=dev)
     it, done, cg_its = 0, False, []
     while it < max_iter and not done:
-        dxc, dxp, gnorm, cg_it, model, _, _ = _step(
-            problem, plan, cam9, X, lam, loss=loss, f_scale=f_scale, solver_kind=solver_kind, cg_tol=cg_tol,
-            cg_max_iter=cg_max_iter, fused=fused, obs_minor=obs_minor,
-        )
-        if cg_it is not None:
-            cg_its.append(cg_it)
-        cam9, X, lam, cost, done_t = _lm_tail(
-            problem, plan, cam9, X, lam, cost, gnorm, dxc, dxp, model, lb, ub,
-            loss=loss, f_scale=f_scale, ftol=ftol, xtol=xtol, gtol=gtol, obs_minor=obs_minor,
-        )
-        it += 1
-        done = bool(done_t)  # the one device->host read of the iteration
+        with span("ba.lm_iter"):
+            dxc, dxp, gnorm, cg_it, model, _, _ = _step(
+                problem, plan, cam9, X, lam, loss=loss, f_scale=f_scale, solver_kind=solver_kind, cg_tol=cg_tol,
+                cg_max_iter=cg_max_iter, fused=fused, obs_minor=obs_minor,
+            )
+            if cg_it is not None:
+                cg_its.append(cg_it)
+            cam9, X, lam, cost, done_t = _lm_tail(
+                problem, plan, cam9, X, lam, cost, gnorm, dxc, dxp, model, lb, ub,
+                loss=loss, f_scale=f_scale, ftol=ftol, xtol=xtol, gtol=gtol, obs_minor=obs_minor,
+            )
+            it += 1
+            with span("ba.read"):
+                done = bool(done_t)  # the one device->host read of the iteration
     return cam9, X, cost0, cost, gnorm, it, done, cg_its
 
 
@@ -1457,57 +1463,60 @@ def lm_solve(problem, cam9_0, X0, config: BAConfig = BAConfig(), mesh=None, *, f
             "problems; this one is sparse or has constraint rows"
         )
     given = problem
-    problem = _sharded(problem, config, mesh, cam9_0, X0)
-    dtype, device = problem.uv.dtype, problem.uv.device
-    on_dev = dict(dtype=dtype, device=device)
-    C = problem.n_cameras
-    X_all = torch.as_tensor(X0, **on_dev)
-    X = _local_points(problem, X_all)
-    P = int(X.shape[0])
-    if fused_schur is None:
-        fused_schur = isinstance(problem, BADenseProblem) and fused_schur_available(problem, P, dtype)
-    opts = dict(
-        loss=config.loss,
-        f_scale=float(config.f_scale),
-        max_iter=config.max_iter,
-        ftol=config.ftol,
-        xtol=config.xtol,
-        gtol=config.gtol,
-        solver_kind=_solver_kind(problem, config, C, P),
-        cg_tol=config.cg_tol,
-        cg_max_iter=config.cg_max_iter,
-        init_lambda=config.init_lambda,
-        fused=bool(fused_schur),
-        obs_minor=_use_obs_minor(problem, config.obs_minor),
-    )
-    cam9_0 = torch.as_tensor(np.asarray(cam9_0), **on_dev)
-    if config.bake_problem:
-        from caliscope_tpu_torch.solvers.baked import baked_runner
+    with span("ba.setup"):
+        problem = _sharded(problem, config, mesh, cam9_0, X0)
+        dtype, device = problem.uv.dtype, problem.uv.device
+        on_dev = dict(dtype=dtype, device=device)
+        C = problem.n_cameras
+        X_all = torch.as_tensor(X0, **on_dev)
+        X = _local_points(problem, X_all)
+        P = int(X.shape[0])
+        if fused_schur is None:
+            fused_schur = isinstance(problem, BADenseProblem) and fused_schur_available(problem, P, dtype)
+        opts = dict(
+            loss=config.loss,
+            f_scale=float(config.f_scale),
+            max_iter=config.max_iter,
+            ftol=config.ftol,
+            xtol=config.xtol,
+            gtol=config.gtol,
+            solver_kind=_solver_kind(problem, config, C, P),
+            cg_tol=config.cg_tol,
+            cg_max_iter=config.cg_max_iter,
+            init_lambda=config.init_lambda,
+            fused=bool(fused_schur),
+            obs_minor=_use_obs_minor(problem, config.obs_minor),
+        )
+        cam9_0 = torch.as_tensor(np.asarray(cam9_0), **on_dev)
+        if config.bake_problem:
+            from caliscope_tpu_torch.solvers.baked import baked_runner
 
-        runner = baked_runner(given, problem, P, opts)
-        problem = runner.problem
-        cam9, X, cost0, cost, gnorm, it, done, cg_its = runner.solve(cam9_0, X)
-    else:
-        lb, ub = _bounds(C, on_dev)
-        cam9, X, cost0, cost, gnorm, it, done, cg_its = _lm_run(problem, _make_plan(problem, P, dtype), cam9_0, X, lb, ub, **opts)
-    # one small readback for the camera blocks, scalars and CG counts
-    tail = [cost0, cost, gnorm] + [c.to(dtype) for c in cg_its]
-    flat = torch.cat([cam9.reshape(-1), torch.stack(tail)]).cpu().numpy()
-    nc = N_CAM_PARAMS * C
-    return BAResult(
-        cam9=flat[:nc].reshape(C, N_CAM_PARAMS),
-        X=_all_points(problem, X, X_all.shape[0]),
-        cost_initial=float(flat[nc]),
-        cost_final=float(flat[nc + 1]),
-        n_iterations=it,
-        converged=done,
-        gradient_norm=float(flat[nc + 2]),
-        solver=opts["solver_kind"],
-        fused_schur=opts["fused"] and opts["solver_kind"] == "schur",
-        obs_minor=opts["obs_minor"],
-        cg_iterations=tuple(int(c) for c in flat[nc + 3 :]),
-        n_devices=problem.shard.mesh.size if problem.shard is not None else 1,
-    )
+            runner = baked_runner(given, problem, P, opts)
+            problem = runner.problem
+            run = partial(runner.solve, cam9_0, X)
+        else:
+            lb, ub = _bounds(C, on_dev)
+            run = partial(_lm_run, problem, _make_plan(problem, P, dtype), cam9_0, X, lb, ub, **opts)
+    cam9, X, cost0, cost, gnorm, it, done, cg_its = run()
+    with span("ba.finish"):
+        # one small readback for the camera blocks, scalars and CG counts
+        tail = [cost0, cost, gnorm] + [c.to(dtype) for c in cg_its]
+        flat = torch.cat([cam9.reshape(-1), torch.stack(tail)]).cpu().numpy()
+        nc = N_CAM_PARAMS * C
+        return BAResult(
+            cam9=flat[:nc].reshape(C, N_CAM_PARAMS),
+            X=_all_points(problem, X, X_all.shape[0]),
+            cost_initial=float(flat[nc]),
+            cost_final=float(flat[nc + 1]),
+            n_iterations=it,
+            converged=done,
+            gradient_norm=float(flat[nc + 2]),
+            solver=opts["solver_kind"],
+            fused_schur=opts["fused"] and opts["solver_kind"] == "schur",
+            obs_minor=opts["obs_minor"],
+            cg_iterations=tuple(int(c) for c in flat[nc + 3 :]),
+            n_devices=problem.shard.mesh.size if problem.shard is not None else 1,
+        )
 
 
 def bound_warnings(cam9, proximity: float = 0.01) -> list[str]:

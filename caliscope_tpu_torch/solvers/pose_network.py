@@ -41,6 +41,7 @@ from caliscope_tpu_torch.exceptions import CalibrationError
 from caliscope_tpu_torch.observations import ImagePoints
 from caliscope_tpu_torch.ops import lie
 from caliscope_tpu_torch.ops.bucket import bucket_size, pad_rows
+from caliscope_tpu_torch.tracing import span
 
 logger = logging.getLogger(__name__)
 
@@ -694,12 +695,14 @@ def build_pnp_pose_network(
 ) -> PairedPoseNetwork:
     """PnP path of the bootstrap dispatch: resect -> relative poses -> IQR
     filter -> aggregate -> bridge, on `device`."""
-    poses = estimate_camera_object_poses(image_points, camera_array, min_points, device=device)
-    samples = relative_pose_samples(poses)
-    if not samples:
-        raise CalibrationError(
-            "No camera pair co-observes the calibration target in any frame; cannot estimate relative poses."
-        )
-    inliers = reject_outliers(samples, outlier_threshold)
-    raw_pairs = aggregate_pairs(inliers, image_points, camera_array, device=device)
-    return PairedPoseNetwork.from_raw_estimates(raw_pairs)
+    with span("bootstrap.pnp"):
+        poses = estimate_camera_object_poses(image_points, camera_array, min_points, device=device)
+    with span("bootstrap.pairs"):
+        samples = relative_pose_samples(poses)
+        if not samples:
+            raise CalibrationError(
+                "No camera pair co-observes the calibration target in any frame; cannot estimate relative poses."
+            )
+        inliers = reject_outliers(samples, outlier_threshold)
+        raw_pairs = aggregate_pairs(inliers, image_points, camera_array, device=device)
+        return PairedPoseNetwork.from_raw_estimates(raw_pairs)

@@ -48,6 +48,7 @@ from caliscope_tpu_torch.detect.corners import detect_x_corners_device, xcorner_
 from caliscope_tpu_torch.detect.dictionaries import get_dictionary
 from caliscope_tpu_torch.detect.ring import PAD
 from caliscope_tpu_torch.device import resolve_device
+from caliscope_tpu_torch.tracing import span
 from caliscope_tpu_torch.packets import PixelFormat, PointPacket
 from caliscope_tpu_torch.targets.charuco import Charuco
 from caliscope_tpu_torch.tracker import Tracker
@@ -282,47 +283,53 @@ class CharucoTracker(Tracker):
         pack4 = pack4 and stack.dtype == np.uint8 and stack.shape[2] % (2 * scale) == 0
         outs = []
         for i in range(0, B, chunk):
-            piece = stack[i : i + chunk]
-            if scale > 1 and pack4:
-                piece = _downsample_pack4(piece, scale)
-            elif scale > 1:
-                piece = _downsample(piece, scale)
-            elif pack4:
-                piece = _pack4(piece)
-            if scale > 1:
-                # the patch pyramid needs dims divisible by 8; replicate-pad
-                # to a multiple of 16 (edge values add no gradients for the
-                # threshold to bite on). Packed widths count 2 px per byte.
-                wq = 16 // (2 if pack4 else 1)
-                ph = (-piece.shape[1]) % 16
-                pw = (-piece.shape[2]) % wq
-                if ph or pw:
-                    piece = np.pad(piece, ((0, 0), (0, ph), (0, pw)), mode="edge")
-            images = torch.from_numpy(np.ascontiguousarray(piece)).to(self.device)
-            outs.append(
-                _charuco_device_program(
-                    images, d.marker_size, MARKER_KMAX, MARKER_PATCH, min_area, CCL_ITERS, X_CORNER_KMAX, pack4
+            with span("tracker.prepare"):
+                piece = stack[i : i + chunk]
+                if scale > 1 and pack4:
+                    piece = _downsample_pack4(piece, scale)
+                elif scale > 1:
+                    piece = _downsample(piece, scale)
+                elif pack4:
+                    piece = _pack4(piece)
+                if scale > 1:
+                    # the patch pyramid needs dims divisible by 8; replicate-pad
+                    # to a multiple of 16 (edge values add no gradients for the
+                    # threshold to bite on). Packed widths count 2 px per byte.
+                    wq = 16 // (2 if pack4 else 1)
+                    ph = (-piece.shape[1]) % 16
+                    pw = (-piece.shape[2]) % wq
+                    if ph or pw:
+                        piece = np.pad(piece, ((0, 0), (0, ph), (0, pw)), mode="edge")
+                piece = np.ascontiguousarray(piece)
+            with span("tracker.upload", bytes=piece.nbytes):
+                images = torch.from_numpy(piece).to(self.device)
+            with span("tracker.launch"):
+                outs.append(
+                    _charuco_device_program(
+                        images, d.marker_size, MARKER_KMAX, MARKER_PATCH, min_area, CCL_ITERS, X_CORNER_KMAX, pack4
+                    )
                 )
-            )
             with self._dispatch_lock:
                 self.dispatches += 1
         for ci_, out in enumerate(outs):
             s = ci_ * chunk
             e = min(s + chunk, B)
-            packed = out.cpu().numpy()
-            quads, cells, valid, xy, xvalid = _unpack_device_program(
-                packed, d.marker_size, MARKER_KMAX, X_CORNER_KMAX
-            )
-            if scale > 1:
-                # 1/s-res pixel centers sit at full-res coords s*x +
-                # (s-1)/2. Candidates stay coarse-accurate here (~s/2 px):
-                # the board assembly's homography/snap gates tolerate that,
-                # and only the few dozen winning corners per frame get the
-                # full-res host polish afterwards (_refine_hits).
-                quads = quads * float(scale) + (scale - 1) / 2.0
-                xy = xy * float(scale) + (scale - 1) / 2.0
-            dets_list = assemble_marker_detections(quads, cells, valid, d)
-            cand_list = [xy[b][xvalid[b]] for b in range(e - s)]
+            with span("tracker.readback"):
+                packed = out.cpu().numpy()
+            with span("tracker.assemble"):
+                quads, cells, valid, xy, xvalid = _unpack_device_program(
+                    packed, d.marker_size, MARKER_KMAX, X_CORNER_KMAX
+                )
+                if scale > 1:
+                    # 1/s-res pixel centers sit at full-res coords s*x +
+                    # (s-1)/2. Candidates stay coarse-accurate here (~s/2 px):
+                    # the board assembly's homography/snap gates tolerate that,
+                    # and only the few dozen winning corners per frame get the
+                    # full-res host polish afterwards (_refine_hits).
+                    quads = quads * float(scale) + (scale - 1) / 2.0
+                    xy = xy * float(scale) + (scale - 1) / 2.0
+                dets_list = assemble_marker_detections(quads, cells, valid, d)
+                cand_list = [xy[b][xvalid[b]] for b in range(e - s)]
             yield s, e, dets_list, cand_list
 
     @staticmethod
@@ -616,24 +623,26 @@ class CharucoTracker(Tracker):
                     stack = stack[:, :, ::-1]
                 stack = np.ascontiguousarray(stack)
             still = []
-            for s, e, dets_list, cand_list in self._run_stack_chunks(stack, scale, pack4):
-                hits = []  # [j, kps, img_xy, b, n_markers] for this chunk
-                for j in range(s, e):
-                    b = pending[j]
-                    result = self._detect_face(stack[j], dets=dets_list[j - s], cand=cand_list[j - s])
-                    accepted = False
-                    if result is not None:
-                        kps, img_xy, n_markers = result
-                        hits.append([j, kps, img_xy, b, n_markers])
-                        accepted = self._is_strong((n_markers, len(kps)))
-                    if not accepted:
-                        still.append(b)
-                if scale > 1:
-                    self._refine_hits(stack, hits, scale)
-                for j, kps, img_xy, b, n_markers in hits:
-                    score = (n_markers, len(kps))
-                    if b not in best or score > best[b][0]:
-                        best[b] = (score, mirrored, kps, img_xy)
+            with span("tracker.pass", frames=len(pending), mirrored=mirrored, scale=scale):
+                for s, e, dets_list, cand_list in self._run_stack_chunks(stack, scale, pack4):
+                    with span("tracker.assemble"):
+                        hits = []  # [j, kps, img_xy, b, n_markers] for this chunk
+                        for j in range(s, e):
+                            b = pending[j]
+                            result = self._detect_face(stack[j], dets=dets_list[j - s], cand=cand_list[j - s])
+                            accepted = False
+                            if result is not None:
+                                kps, img_xy, n_markers = result
+                                hits.append([j, kps, img_xy, b, n_markers])
+                                accepted = self._is_strong((n_markers, len(kps)))
+                            if not accepted:
+                                still.append(b)
+                        if scale > 1:
+                            self._refine_hits(stack, hits, scale)
+                        for j, kps, img_xy, b, n_markers in hits:
+                            score = (n_markers, len(kps))
+                            if b not in best or score > best[b][0]:
+                                best[b] = (score, mirrored, kps, img_xy)
             pending = still
 
     def get_points_batch(self, frames: np.ndarray, cam_id: int = 0, rotation_count: int = 0) -> list[PointPacket]:
@@ -646,39 +655,40 @@ class CharucoTracker(Tracker):
         better-scoring face wins. `get_points` is this on a stack of one.
         """
         frames = np.asarray(frames)
-        if frames.ndim == 4:
-            frames = frames.mean(axis=3)
-        # Inversion is the only host-side intensity op; it is exact in uint8
-        # (255 - v), so uint8 frames stay uint8 (a quarter of float32's
-        # upload bytes, and eligible for the 4-bit packed upload).
-        if self.charuco.inverted:
-            grays = 255 - frames if frames.dtype == np.uint8 else 255.0 - frames.astype(np.float32)
-        else:
-            grays = frames
-        B = grays.shape[0]
-        orders = [False, True] if not self._mirror_hint.get(cam_id, False) else [True, False]
-        best: dict[int, tuple] = {}
-        scale = self._scale()
-        self._orientation_passes(grays, list(range(B)), best, orders, scale, self._pack4_first_pass())
-        if scale > 1:
-            # Quality-gated full-res retry: a weak coarse-scale result (few
-            # markers / few corners) on a hard view can pass the geometric
-            # gates with misidentified corners. Strong detections keep the
-            # cheap path; weak or missing ones re-run at full resolution,
-            # 8-bit, and the better score wins.
-            weak = [b for b in range(B) if b not in best or not self._is_strong(best[b][0])]
-            if weak:
-                self._orientation_passes(grays, weak, best, orders, 1, False)
-        packets = []
-        for b in range(B):
-            if b in best:
-                packets.append(self._packet_from(best[b], grays.shape[2]))
+        with span("tracker.batch", frames=frames.shape[0]):
+            if frames.ndim == 4:
+                frames = frames.mean(axis=3)
+            # Inversion is the only host-side intensity op; it is exact in uint8
+            # (255 - v), so uint8 frames stay uint8 (a quarter of float32's
+            # upload bytes, and eligible for the 4-bit packed upload).
+            if self.charuco.inverted:
+                grays = 255 - frames if frames.dtype == np.uint8 else 255.0 - frames.astype(np.float32)
             else:
-                packets.append(PointPacket.empty())
-        if best:
-            n_mirrored = sum(1 for v in best.values() if v[1])
-            self._mirror_hint[cam_id] = n_mirrored * 2 > len(best)
-        return packets
+                grays = frames
+            B = grays.shape[0]
+            orders = [False, True] if not self._mirror_hint.get(cam_id, False) else [True, False]
+            best: dict[int, tuple] = {}
+            scale = self._scale()
+            self._orientation_passes(grays, list(range(B)), best, orders, scale, self._pack4_first_pass())
+            if scale > 1:
+                # Quality-gated full-res retry: a weak coarse-scale result (few
+                # markers / few corners) on a hard view can pass the geometric
+                # gates with misidentified corners. Strong detections keep the
+                # cheap path; weak or missing ones re-run at full resolution,
+                # 8-bit, and the better score wins.
+                weak = [b for b in range(B) if b not in best or not self._is_strong(best[b][0])]
+                if weak:
+                    self._orientation_passes(grays, weak, best, orders, 1, False)
+            packets = []
+            for b in range(B):
+                if b in best:
+                    packets.append(self._packet_from(best[b], grays.shape[2]))
+                else:
+                    packets.append(PointPacket.empty())
+            if best:
+                n_mirrored = sum(1 for v in best.values() if v[1])
+                self._mirror_hint[cam_id] = n_mirrored * 2 > len(best)
+            return packets
 
     # ---- metadata -----------------------------------------------------------
     def get_point_name(self, keypoint_id: int) -> str:

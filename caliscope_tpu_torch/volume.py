@@ -52,6 +52,7 @@ from caliscope_tpu_torch.scale import (
     compute_frame_scale_error,
     world_basis_from_up_and_forward,
 )
+from caliscope_tpu_torch.tracing import span
 
 logger = logging.getLogger(__name__)
 
@@ -291,7 +292,8 @@ class CaptureVolume:
         pose_network.apply_to(cameras)
         on = dict(device=device, dtype=dtype)
         static_ids = constraints.static_object_ids if constraints else frozenset()
-        world_points = image_points.triangulate(cameras, static_object_ids=static_ids, **on)
+        with span("bootstrap.triangulate"):
+            world_points = image_points.triangulate(cameras, static_object_ids=static_ids, **on)
         volume = cls(
             camera_array=cameras, image_points=image_points, world_points=world_points, constraints=constraints, **on
         )
@@ -415,52 +417,55 @@ class CaptureVolume:
         never, True always (raising where the kernel cannot run)."""
         from caliscope_tpu_torch.solvers.bundle import BAConfig, bound_warnings, lm_solve
 
-        problem, cam9_0, X0 = self.ba_problem(refine_intrinsics, use_constraints, pixel_sigma)
-        P_real = len(self.world_points)
-        config = BAConfig(
-            loss=loss,
-            f_scale=f_scale,
-            max_iter=max_nfev if max_nfev is not None else 200,
-            ftol=ftol,
-            solver=solver,
-            shard=shard,
-            bake_problem=bake_problem,
-        )
-        logger.info(f"Beginning bundle adjustment on {len(self.image_points)} observations ({X0.shape[0]} bucketed points)")
-        result = lm_solve(problem, cam9_0, X0, config, fused_schur=fused_schur)
-
-        termination = "converged_ftol" if result.converged else "max_iterations"
-        if strict and not result.converged:
-            raise CalibrationError(
-                f"Bundle adjustment did not converge: {termination}\n"
-                f"Pass strict=False to suppress this error and inspect the result."
+        with span("ba.solve"):
+            with span("ba.setup"):
+                problem, cam9_0, X0 = self.ba_problem(refine_intrinsics, use_constraints, pixel_sigma)
+            P_real = len(self.world_points)
+            config = BAConfig(
+                loss=loss,
+                f_scale=f_scale,
+                max_iter=max_nfev if max_nfev is not None else 200,
+                ftol=ftol,
+                solver=solver,
+                shard=shard,
+                bake_problem=bake_problem,
             )
+            logger.info(f"Beginning bundle adjustment on {len(self.image_points)} observations ({X0.shape[0]} bucketed points)")
+            result = lm_solve(problem, cam9_0, X0, config, fused_schur=fused_schur)
 
-        new_cameras = self.camera_array.copy()
-        for i, cid in enumerate(sorted(new_cameras.posed_cameras.keys())):
-            cam = new_cameras.cameras[cid]
-            cam.extrinsics_from_vector(result.cam9[i, :6])
-            if refine_intrinsics:
-                s, k1, k2 = result.cam9[i, 6:]
-                cam.matrix = cam.matrix.copy()
-                cam.matrix[0, 0] *= s
-                cam.matrix[1, 1] *= s
-                d = cam.distortions.copy()
-                d[0], d[1] = k1, k2
-                cam.distortions = d
+            termination = "converged_ftol" if result.converged else "max_iterations"
+            if strict and not result.converged:
+                raise CalibrationError(
+                    f"Bundle adjustment did not converge: {termination}\n"
+                    f"Pass strict=False to suppress this error and inspect the result."
+                )
 
-        status = OptimizationStatus(
-            converged=result.converged,
-            termination_reason=termination,
-            iterations=result.n_iterations,
-            final_cost=result.cost_final,
-            bound_warnings=tuple(bound_warnings(result.cam9)) if refine_intrinsics else (),
-        )
-        return self._derived(
-            camera_array=new_cameras,
-            world_points=self.world_points.with_xyz(result.X[:P_real].cpu().numpy().astype(np.float64)),
-            _optimization_status=status,
-        )
+            with span("ba.finish"):
+                new_cameras = self.camera_array.copy()
+                for i, cid in enumerate(sorted(new_cameras.posed_cameras.keys())):
+                    cam = new_cameras.cameras[cid]
+                    cam.extrinsics_from_vector(result.cam9[i, :6])
+                    if refine_intrinsics:
+                        s, k1, k2 = result.cam9[i, 6:]
+                        cam.matrix = cam.matrix.copy()
+                        cam.matrix[0, 0] *= s
+                        cam.matrix[1, 1] *= s
+                        d = cam.distortions.copy()
+                        d[0], d[1] = k1, k2
+                        cam.distortions = d
+
+                status = OptimizationStatus(
+                    converged=result.converged,
+                    termination_reason=termination,
+                    iterations=result.n_iterations,
+                    final_cost=result.cost_final,
+                    bound_warnings=tuple(bound_warnings(result.cam9)) if refine_intrinsics else (),
+                )
+                return self._derived(
+                    camera_array=new_cameras,
+                    world_points=self.world_points.with_xyz(result.X[:P_real].cpu().numpy().astype(np.float64)),
+                    _optimization_status=status,
+                )
 
     # ---- rigidity / scale QA ------------------------------------------------
     def rigidity_report(self) -> RigidityReport:
@@ -569,20 +574,21 @@ class CaptureVolume:
             raise ValueError(f"Filter percentile {percentile} falls outside (0, 100]")
         if min_per_camera < 1:
             raise ValueError(f"The per-camera safety floor must keep at least one observation (got {min_per_camera})")
-        raw = self.reprojection_report.raw_errors
-        euclid = raw.euclidean_error
-        keep_pct = 100 - percentile
-        if scope == "per_camera":
-            thresholds = {}
-            for cid in self.camera_array.posed_cameras:
-                errs = euclid[raw.cam_id == cid]
-                thresholds[cid] = float(np.percentile(errs, keep_pct)) if len(errs) else float(np.inf)
-        elif scope == "overall":
-            g = float(np.percentile(euclid, keep_pct))
-            thresholds = {cid: g for cid in self.camera_array.posed_cameras}
-        else:
-            raise ValueError(f"Unknown filter scope {scope!r}; use per_camera or overall")
-        return self._filter_by_thresholds(thresholds, min_per_camera)
+        with span("ba.filter"):
+            raw = self.reprojection_report.raw_errors
+            euclid = raw.euclidean_error
+            keep_pct = 100 - percentile
+            if scope == "per_camera":
+                thresholds = {}
+                for cid in self.camera_array.posed_cameras:
+                    errs = euclid[raw.cam_id == cid]
+                    thresholds[cid] = float(np.percentile(errs, keep_pct)) if len(errs) else float(np.inf)
+            elif scope == "overall":
+                g = float(np.percentile(euclid, keep_pct))
+                thresholds = {cid: g for cid in self.camera_array.posed_cameras}
+            else:
+                raise ValueError(f"Unknown filter scope {scope!r}; use per_camera or overall")
+            return self._filter_by_thresholds(thresholds, min_per_camera)
 
     # ---- anchoring ----------------------------------------------------------
     def _apply_similarity(self, params: SimilarityParams) -> "CaptureVolume":
