@@ -32,7 +32,7 @@ from caliscope_tpu_torch.device import resolve_device, resolve_dtype
 from caliscope_tpu_torch.exceptions import CalibrationError
 from caliscope_tpu_torch.observations import ImagePoints
 from caliscope_tpu_torch.ops.bucket import bucket_size, pad_rows
-from caliscope_tpu_torch.solvers.pose_network import PairedPoseNetwork, StereoPair, _on, stereo_rmse
+from caliscope_tpu_torch.solvers.pose_network import PairedPoseNetwork, StereoPair, _on, stereo_rmse_batch
 
 logger = logging.getLogger(__name__)
 
@@ -315,10 +315,10 @@ def build_epipolar_pose_network(image_points: ImagePoints, camera_array: CameraA
             sp = sp.inverted()
         aggregated[sp.pair] = sp
 
+    rmse = stereo_rmse_batch(list(aggregated.values()), image_points, camera_array, device=device)
     scored: dict[tuple[int, int], StereoPair] = {}
     for pair, sp in aggregated.items():
-        rmse = stereo_rmse(sp, image_points, camera_array, device=device)
-        score = rmse if np.isfinite(rmse) else 1e6
+        score = rmse[pair] if np.isfinite(rmse[pair]) else 1e6
         scored[pair] = StereoPair(sp.primary_cam_id, sp.secondary_cam_id, score, sp.rotation, sp.translation)
 
     return PairedPoseNetwork.from_raw_estimates(scored)

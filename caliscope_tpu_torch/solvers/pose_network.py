@@ -307,81 +307,159 @@ def aggregate_pairs(
         pairs[(a, b)] = StereoPair(a, b, err, R_mean, t_mean)
 
     if image_points is not None and camera_array is not None:
+        scores = stereo_rmse_batch(list(pairs.values()), image_points, camera_array, device=device)
         for key, sp in list(pairs.items()):
-            rmse = stereo_rmse(sp, image_points, camera_array, device=device)
-            if np.isfinite(rmse):
-                pairs[key] = StereoPair(sp.primary_cam_id, sp.secondary_cam_id, rmse, sp.rotation, sp.translation)
+            if np.isfinite(scores[key]):
+                pairs[key] = StereoPair(sp.primary_cam_id, sp.secondary_cam_id, scores[key], sp.rotation, sp.translation)
     return pairs
 
 
 def stereo_rmse(pair: StereoPair, image_points: ImagePoints, camera_array: CameraArray, device=None) -> float:
-    """Pair quality: triangulate co-observations with (I | T_b_a) on
-    `device` (in its default dtype), reproject, pixel RMSE
-    (cv2.stereoCalibrate's score). Both
-    cameras' points are undistorted with camera A's model flag, as the JAX
-    package does."""
+    """Pair quality: `stereo_rmse_batch` of the one pair."""
+    return stereo_rmse_batch([pair], image_points, camera_array, device=device)[pair.pair]
+
+
+# Blocks (a pair and one point both its cameras see) a device pass takes at
+# most, in whole pairs: a block's two-view DLT and its rows' float64
+# residuals hold ~0.45 KB at the pass's peak (0.25 GB for the 588,000 blocks
+# of 8 cameras x 21,000 points on an H100, over the ~4.5 GB workspace that
+# torch.linalg.eigh takes for each of triangulate_dlt's batches of 16,384).
+SCORE_CHUNK = 1 << 20
+
+
+def stereo_rmse_batch(
+    pairs: list[StereoPair], image_points: ImagePoints, camera_array: CameraArray, device=None
+) -> dict[tuple[int, int], float]:
+    """Each pair's quality, cv2.stereoCalibrate's score: triangulate the
+    pair's co-observations with (I | T_b_a) on `device` (in its default
+    dtype), reproject in float64, pixel RMSE. nan where fewer than 10 rows
+    (observations of points both cameras see) remain or none is scored.
+
+    One pass for all pairs. The host numbers the points, (sync_index,
+    object_id, keypoint_id), once over the pairs' cameras and lists each
+    pair's co-observed points; the device undistorts every row once,
+    triangulates every (pair, point) block, reprojects and sums squares per
+    pair, and the sums come back in one read. Each score is the one pair's
+    rule: a point is triangulated from its first two rows in the pair in
+    the rows' order and every row of it is scored; both cameras' rows are
+    undistorted with camera A's model flag, as the JAX package does."""
     from caliscope_tpu_torch.ops.projection import undistort_points
-    from caliscope_tpu_torch.ops.triangulate import triangulate_groups
+    from caliscope_tpu_torch.ops.triangulate import triangulate_dlt
 
     device = resolve_device(device)
     to = _on(device, resolve_dtype(device))
-    a, b = pair.primary_cam_id, pair.secondary_cam_id
-    cam_a, cam_b = camera_array.cameras[a], camera_array.cameras[b]
-    ip = image_points.select(np.isin(image_points.cam_id, [a, b]))
-    if len(ip) == 0:
-        return np.nan
-    pt_idx, _keys = ip.point_index()
-    # keep points seen by both
-    seen_a = np.zeros(pt_idx.max() + 1, bool)
-    seen_b = np.zeros(pt_idx.max() + 1, bool)
-    seen_a[pt_idx[ip.cam_id == a]] = True
-    seen_b[pt_idx[ip.cam_id == b]] = True
-    ip = ip.select((seen_a & seen_b)[pt_idx])
-    if len(ip) < 10:
-        return np.nan
-    pt_idx, _ = ip.point_index()
+    scores = {sp.pair: np.nan for sp in pairs}
+    with span("bootstrap.score") as record:
+        cam_ids = np.array(sorted({c for sp in pairs for c in sp.pair}))
+        keep = np.isin(image_points.cam_id, cam_ids)
+        N, C = int(keep.sum()), len(cam_ids)
+        if N == 0:
+            return scores
+        cam = np.searchsorted(cam_ids, image_points.cam_id[keep])
+        sync, obj, kp = image_points.sync_index[keep], image_points.object_id[keep], image_points.keypoint_id[keep]
 
-    is_a = ip.cam_id == a
-    K = np.where(is_a[:, None, None], cam_a.matrix[None], cam_b.matrix[None])
-    dmax = max(len(cam_a.distortions), len(cam_b.distortions))
-    da = np.zeros(dmax)
-    da[: len(cam_a.distortions)] = cam_a.distortions
-    db = np.zeros(dmax)
-    db[: len(cam_b.distortions)] = cam_b.distortions
-    d = np.where(is_a[:, None], da[None], db[None])
-    # rows and points bucketed as the JAX package does (filler rows feed a
-    # reserved dummy point)
-    N = len(ip)
-    Nb = bucket_size(N)
-    n_points = int(pt_idx.max()) + 1
-    Pb = bucket_size(n_points + 1)
-    K_b = pad_rows(K, Nb)
-    K_b[N:] = np.eye(3)
-    xn_dev = undistort_points(to(pad_rows(ip.img_xy, Nb)), to(K_b), to(pad_rows(d, Nb)), cam_a.fisheye)
+        # a dense point number; per (point, camera) its rows' count and its
+        # first two rows in the rows' order (N: none)
+        order = np.lexsort((kp, obj, sync))
+        new = np.ones(N, bool)
+        new[1:] = (np.diff(sync[order]) != 0) | (np.diff(obj[order]) != 0) | (np.diff(kp[order]) != 0)
+        point = np.empty(N, np.int64)
+        point[order] = np.cumsum(new) - 1
+        n_points = int(point[order[-1]]) + 1
+        pc = point * C + cam
+        by_pc = np.argsort(pc, kind="stable")
+        starts = np.flatnonzero(np.r_[True, np.diff(pc[by_pc]) != 0])
+        count = np.bincount(pc, minlength=n_points * C)
+        first, second = np.full(n_points * C, N), np.full(n_points * C, N)
+        first[pc[by_pc[starts]]] = by_pc[starts]
+        twice = starts[count[pc[by_pc[starts]]] > 1]
+        second[pc[by_pc[twice]]] = by_pc[twice + 1]
+        count, first, second = (x.reshape(n_points, C) for x in (count, first, second))
+        rows_of = [np.flatnonzero(cam == c) for c in range(C)]
 
-    proj = np.zeros((2, 3, 4))
-    proj[0, :3, :3] = np.eye(3)
-    proj[1, :3, :3] = pair.rotation
-    proj[1, :3, 3] = pair.translation
-    cam_idx = np.where(is_a, 0, 1)
-    xyz, n_views = triangulate_groups(
-        to(proj), to(pad_rows(cam_idx, Nb), torch.int64), xn_dev, to(pad_rows(pt_idx, Nb, fill=Pb - 1), torch.int64), Pb, 2
-    )
-    xn = xn_dev[:N].cpu().numpy().astype(np.float64)
-    xyz = xyz[:n_points].cpu().numpy().astype(np.float64)
-    n_views = n_views[:n_points].cpu().numpy()
-    # reproject in normalized coords, convert to px with each camera's focal
-    P = proj[cam_idx]
-    Xh = np.concatenate([xyz[pt_idx], np.ones((len(ip), 1))], axis=1)
-    xc = np.einsum("nij,nj->ni", P, Xh)
-    ok = xc[:, 2] > 1e-6
-    uvn = xc[:, :2] / np.where(ok, xc[:, 2], 1.0)[:, None]
-    f = np.where(is_a, cam_a.matrix[0, 0], cam_b.matrix[0, 0])
-    err_px = np.linalg.norm(uvn - xn, axis=1) * f
-    err_px = err_px[ok & (n_views[pt_idx] >= 2)]
-    if len(err_px) == 0:
-        return np.nan
-    return float(np.sqrt(np.mean(err_px**2)))
+        # per pair: a block a point both cameras see, triangulated from its
+        # first two rows in the pair; every row of it scored
+        ca = np.searchsorted(cam_ids, [sp.primary_cam_id for sp in pairs])
+        cb = np.searchsorted(cam_ids, [sp.secondary_cam_id for sp in pairs])
+        scored, views, res_block, res_row, n_blocks, n_rows = [], [], [], [], [], []
+        for q, (a, b) in enumerate(zip(ca, cb)):
+            both = (count[:, a] > 0) & (count[:, b] > 0)
+            rows = np.concatenate([rows_of[a], rows_of[b]])
+            rows = rows[both[point[rows]]]
+            if len(rows) < 10:
+                continue
+            pts = np.flatnonzero(both)
+            fa, sa, fb, sb = first[pts, a], second[pts, a], first[pts, b], second[pts, b]
+            views.append(np.stack([np.minimum(fa, fb), np.where(fa < fb, np.minimum(sa, fb), np.minimum(fa, sb))], 1))
+            res_block.append(sum(n_blocks) + (np.cumsum(both) - 1)[point[rows]])
+            res_row.append(rows)
+            scored.append(q)
+            n_blocks.append(len(pts))
+            n_rows.append(len(rows))
+        if not scored:
+            return scores
+        q_of = np.repeat(scored, n_blocks)
+        # chunks of whole pairs, at most SCORE_CHUNK blocks each unless one
+        # pair alone has more
+        cuts, filled = [0], 0
+        for i, n in enumerate(n_blocks):
+            if filled and filled + n > SCORE_CHUNK:
+                cuts.append(i)
+                filled = 0
+            filled += n
+        cuts.append(len(scored))
+        block_at, row_at = np.r_[0, np.cumsum(n_blocks)], np.r_[0, np.cumsum(n_rows)]
+
+        # per camera: K, distortions (zero-padded), fx, model flag; per pair:
+        # its two projections and the model both its cameras' rows are
+        # undistorted with, camera A's
+        cams = [camera_array.cameras[int(c)] for c in cam_ids]
+        dist = np.zeros((C, max(len(np.ravel(c.distortions)) for c in cams)))
+        for i, c in enumerate(cams):
+            dist[i, : len(np.ravel(c.distortions))] = np.ravel(c.distortions)
+        K = np.stack([c.matrix for c in cams])
+        fisheye = np.array([bool(c.fisheye) for c in cams])
+        proj = np.zeros((len(pairs), 2, 3, 4))
+        proj[:, :, :3, :3] = np.eye(3)
+        proj[:, 1, :3, :3] = [sp.rotation for sp in pairs]
+        proj[:, 1, :3, 3] = [np.ravel(sp.translation) for sp in pairs]
+        models = sorted(set(fisheye[ca[scored]].tolist()))
+        model_of = np.searchsorted(models, fisheye[ca])
+
+        # uploads, all before the device work
+        cam_t = to(cam, torch.int64)
+        uv, K_rows, d_rows = to(image_points.img_xy[keep]), to(K)[cam_t], to(dist)[cam_t]
+        f_rows = to(K[:, 0, 0], torch.float64)[cam_t]
+        cb_t, model_t = to(cb, torch.int64), to(model_of, torch.int64)
+        proj_t, proj64 = to(proj), to(proj, torch.float64)
+        q_t, views_t = to(q_of, torch.int64), to(np.concatenate(views), torch.int64)
+        res_block_t, res_row_t = to(np.concatenate(res_block), torch.int64), to(np.concatenate(res_row), torch.int64)
+
+        xn = torch.stack([undistort_points(uv, K_rows, d_rows, m) for m in models])  # (models, N, 2)
+        sums = torch.zeros(2, len(pairs), dtype=torch.float64, device=device)
+        for i0, i1 in zip(cuts[:-1], cuts[1:]):
+            e0, e1, r0, r1 = block_at[i0], block_at[i1], row_at[i0], row_at[i1]
+            q, v = q_t[e0:e1], views_t[e0:e1]
+            side = (cam_t[v] == cb_t[q][:, None]).long()  # 0: [I|0], 1: [R|t]
+            xyz = triangulate_dlt(proj_t[q[:, None], side], xn[model_t[q][:, None], v], torch.ones_like(side, dtype=torch.bool))
+
+            block, row = res_block_t[r0:r1], res_row_t[r0:r1]
+            q = q_t[block]
+            P = proj64[q, (cam_t[row] == cb_t[q]).long()]
+            Xh = torch.cat([xyz[block - e0].to(torch.float64), torch.ones_like(f_rows[row])[:, None]], dim=1)
+            xc = torch.einsum("nij,nj->ni", P, Xh)
+            ok = xc[:, 2] > 1e-6
+            uvn = xc[:, :2] / torch.where(ok, xc[:, 2], torch.ones_like(xc[:, 2]))[:, None]
+            err = torch.linalg.norm(uvn - xn[model_t[q], row].to(torch.float64), dim=1) * f_rows[row]
+            sums[0].index_add_(0, q, torch.where(ok, err**2, torch.zeros_like(err)))
+            sums[1].index_add_(0, q, ok.to(torch.float64))
+        total, count = sums.cpu().numpy()
+        if record is not None:
+            record.attrs.update(pairs=len(pairs), points=len(q_of), reads=1)
+    for q, sp in enumerate(pairs):
+        if count[q] > 0:
+            scores[sp.pair] = float(np.sqrt(total[q] / count[q]))
+    return scores
 
 
 # ---------------------------------------------------------------------------

@@ -342,7 +342,7 @@ POSE_FRAMES = 32
 CHAIN_CAMERAS, CHAIN_FRAMES = 4, 80
 CHAIN_MODEL_HW = (128, 160)
 MAX_CHAIN_MEDIAN_M = 0.02  # tests/test_onnx_engine.py:256
-EPIPOLAR_PARTS = ("pooled_correspondences", "recover_pair_pose", "_assemble_from_scaffold", "stereo_rmse")
+EPIPOLAR_PARTS = ("pooled_correspondences", "recover_pair_pose", "_assemble_from_scaffold", "stereo_rmse_batch")
 # vertical and sharded phase: (a) GeoCalib tiny at the 16:9 geometry (short
 # side 320, edges multiples of 32), 8 cameras x 6 frames of 1920x1080 (the
 # JAX package's n_sample_frames); (b) analytic up-fields at the network's
@@ -1304,7 +1304,7 @@ def run_pipeline(device, scene_size, what):
 
 
 BOOTSTRAP_PARTS = (
-    "estimate_camera_object_poses", "relative_pose_samples", "reject_outliers", "aggregate_pairs", "stereo_rmse",
+    "estimate_camera_object_poses", "relative_pose_samples", "reject_outliers", "aggregate_pairs", "stereo_rmse_batch",
     "from_raw_estimates", "triangulate", "reprojection_report", "_repair_bootstrap_outlier_cameras",
 )
 

@@ -134,10 +134,12 @@ def test_stereo_rmse_matches_jax(scenes, poses, name):
     jp, _ = poses[name]
     pairs = JP.aggregate_pairs(JP.reject_outliers(JP.relative_pose_samples(jp)))
     port_pairs = convert.stereo_pairs(network_pairs(JP.PairedPoseNetwork(pairs)))
-    for key in list(pairs)[:4]:
+    batch = TP.stereo_rmse_batch([port_pairs[key] for key in pairs], pip, pcams, device="cpu")
+    for key in pairs:
         want = JP.stereo_rmse(pairs[key], ip, cams)
         got = TP.stereo_rmse(port_pairs[key], pip, pcams, device="cpu")
         assert got == pytest.approx(want, rel=GEOM_TOL)
+        assert batch[key] == pytest.approx(want, rel=GEOM_TOL)
         assert 0.0 < got < 5.0
 
 

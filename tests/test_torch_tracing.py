@@ -217,6 +217,10 @@ def test_a_calibration_spans_every_stage_under_one_request(calibration):
 
     for name in ("bootstrap.pnp", "bootstrap.pairs", "bootstrap.triangulate"):
         assert [stage_of(s) for s in named(spans, name)] == ["calibrate.bootstrapping_poses"]
+    # the pairs' scores: one batch inside bootstrap.pairs, one read for the 3 pairs
+    (score,) = named(spans, "bootstrap.score")
+    assert by_id[score.parent_id].name == "bootstrap.pairs"
+    assert score.attrs["pairs"] == 3 and score.attrs["reads"] == 1 and score.attrs["points"] > 0
     assert [stage_of(s) for s in named(spans, "ba.filter")] == ["calibrate.filtering_outliers"]
     assert [stage_of(s) for s in named(spans, "ba.solve")] == [
         "calibrate.optimizing", "calibrate.robust_refinement", "calibrate.re-optimizing"]
@@ -307,14 +311,17 @@ def record_spans():
         (("streamer.pace", 2.0, 2.05, {"requested_s": 0.04}), []),
         (("streamer.pace", 7.0, 7.03, {"requested_s": 0.03}), []),
         (("calibrate.job", 0.5, 3.0, {}), [
-            ("bootstrap.pnp", 0.6, 0.9, {}), ("bootstrap.pairs", 0.9, 1.4, {}), ("ba.setup", 1.5, 1.6, {}),
+            ("bootstrap.pnp", 0.6, 0.9, {}), ("bootstrap.pairs", 0.9, 1.4, {}),
+            ("bootstrap.score", 1.2, 1.35, {"pairs": 28, "points": 588_000, "reads": 1}), ("ba.setup", 1.5, 1.6, {}),
             ("ba.setup", 1.7, 1.75, {}), ("ba.lm_iter", 2.0, 2.1, {}), ("ba.lm_iter", 2.1, 2.2, {}),
             *[("ba.read", t, t + 0.01, {}) for t in (2.05, 2.07, 2.15)], ("ba.filter", 2.5, 2.7, {})]),
         (("calibrate.job", 5.5, 9.5, {}), [
-            ("bootstrap.pnp", 5.6, 5.8, {}), ("bootstrap.pairs", 5.8, 6.6, {}), ("ba.setup", 6.6, 6.7, {}),
+            ("bootstrap.pnp", 5.6, 5.8, {}), ("bootstrap.pairs", 5.8, 6.6, {}),
+            ("bootstrap.score", 6.4, 6.45, {"pairs": 28, "points": 588_000, "reads": 1}), ("ba.setup", 6.6, 6.7, {}),
             ("ba.lm_iter", 7.0, 7.1, {}), ("ba.lm_iter", 7.1, 7.2, {}),
             *[("ba.read", t, t + 0.01, {}) for t in (7.05, 7.15, 7.17)], ("ba.filter", 8.0, 8.4, {})]),
-        (("calibrate.job", 4.1, 4.9, {}), [("bootstrap.pnp", 4.2, 4.3, {}), ("ba.lm_iter", 4.5, 4.6, {})]),
+        (("calibrate.job", 4.1, 4.9, {}), [("bootstrap.pnp", 4.2, 4.3, {}), ("bootstrap.score", 4.3, 4.4, {}),
+                                           ("ba.lm_iter", 4.5, 4.6, {})]),
         (("calibrate.job", 3.2, 4.4, {}), [("bootstrap.pnp", 3.3, 3.6, {}), ("ba.read", 3.7, 3.8, {})]),
     ]
     out, ids = tracing.Spans(), iter(range(1, 1000))
@@ -331,7 +338,7 @@ WANT = {
     "tracker.assemble_ms.track": 1e3 * 0.4 / 16, "tracker.passes_per_frame.track": 20 / 16,
     "tracker.h2d_bytes_per_frame.track": 400 / 16, "tracker.wait_ms.live": 1e3 * 0.3 / 16,
     "tracker.assemble_ms.live": 1e3 * 0.4 / 16, "streamer.oversleep_ms.live": 1e3 * 0.01 / 16,
-    "bootstrap.pnp_s": 0.5 / 2, "bootstrap.pairs_s": 1.3 / 2, "ba.setup_s": 0.25 / 2,
+    "bootstrap.pnp_s": 0.5 / 2, "bootstrap.pairs_s": 1.3 / 2, "bootstrap.score_s": 0.2 / 2, "ba.setup_s": 0.25 / 2,
     "ba.read_ms_per_lm_iter": 1e3 * 0.06 / 4, "ba.reads_per_lm_iter": 6 / 4, "filter.s": 0.6 / 2,
 }
 
@@ -360,6 +367,16 @@ def test_readers_find_nothing_in_a_program_without_spans(readers, monkeypatch):
     monkeypatch.setattr(_program, "tracing", None)
     rec = {"window": (0.0, 10.0), "stretch": (4.0, 5.0)}
     assert {name: mod.read(rec) for name, mod in mods.items()} == dict.fromkeys(WANT)
+
+
+def test_the_score_reader_finds_nothing_where_pairs_are_scored_one_by_one(readers, monkeypatch):
+    """A program whose bootstrap has no bootstrap.score span (it scores
+    each pair in a call of its own) gives no bootstrap.score_s, not 0."""
+    mods, _program = readers
+    monkeypatch.setattr(_program.tracing, "spans", lambda: [s for s in record_spans() if s.name != "bootstrap.score"])
+    rec = {"window": (0.0, 10.0), "stretch": (4.0, 5.0)}
+    assert mods["bootstrap.score_s"].read(rec) is None
+    assert mods["bootstrap.pairs_s"].read(rec) == pytest.approx(WANT["bootstrap.pairs_s"])
 
 
 @dataclass
